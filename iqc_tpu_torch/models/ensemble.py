@@ -1,0 +1,472 @@
+"""The full request forward and its predictor: detection -> per-crop
+classification -> fusion -> segmentation, then the result schema.
+
+``FullForward`` runs, for a batch of NHWC images:
+YOLOv8 -> DFL decode + class-aware merge-NMS (suppression kernel) ->
+crop-and-resize of the top ``max_classified`` survivors -> ResNet-50 over
+those crops (or over a batch-wide pool of the best ``crop_pool`` real
+survivors) and over the whole image -> weighted confidence fusion and
+severity max-fusion -> segmentation of the top ``max_segmented`` survivors
+(or of a batch-wide pool of ``seg_pool``; morphology kernels). Crop slots
+beyond the classified ones take the mock refinement rule (conf * 1.1 capped
+at 1, the detector's class and severity).
+
+Outputs are packed into two dense tensors (``pack_outputs``) plus the masks
+and segmentation statistics, and fetched to the host in one go.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+from typing import Dict, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from iqc_tpu_torch.config import SystemConfig, resolve_path
+from iqc_tpu_torch.models.layers import init_random
+from iqc_tpu_torch.models.resnet import ResNet50, classifier_severity, preprocess_for_classifier
+from iqc_tpu_torch.models.yolo import STRIDES, YOLOv8, detection_severity, feature_shapes
+from iqc_tpu_torch.ops import image as imops
+from iqc_tpu_torch.ops.boxes import box_area
+from iqc_tpu_torch.ops.nms import Detections, decode_and_nms, make_anchors
+from iqc_tpu_torch.ops.segmentation import CLASS_TO_METHOD, segment_rois, table_lookup
+from iqc_tpu_torch.weights import load_into, read_checkpoint
+
+logger = logging.getLogger(__name__)
+
+SEVERITY_NAMES = ("minor", "major", "critical")
+
+
+class EnsembleOutputs(NamedTuple):
+    """Outputs of the fused forward, all of fixed capacity K."""
+
+    boxes: object            # [B,K,4] xyxy at model input resolution
+    yolo_scores: object      # [B,K]
+    classes: object          # [B,K] detector class
+    valid: object            # [B,K]
+    areas: object            # [B,K]
+    yolo_severity: object    # [B,K] int {0,1,2}
+    crop_class: object       # [B,K] ResNet class per crop
+    crop_conf: object        # [B,K]
+    crop_severity: object    # [B,K]
+    crop_classified: object  # [B,K] bool: the crop network ran on this slot
+    ensemble_conf: object    # [B,K] fused confidence
+    final_severity: object   # [B,K] max-fused severity
+    severity_counts: object  # [B,3] (#minor, #major, #critical)
+    global_probs: object     # [B,C] whole-image ResNet probabilities
+    image_confidence: object  # [B] per-image ensemble confidence
+
+
+def _top_indices(key: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries of a 1-D key; ties keep the lower index first."""
+    return torch.sort(key, descending=True, stable=True).indices[:k]
+
+
+class FullForward(nn.Module):
+    """The whole request on a batch, as one module."""
+
+    def __init__(self, yolo: YOLOv8, resnet: ResNet50, input_size, max_detections: int,
+                 max_classified: int, classifier_input: int, max_segmented: int,
+                 roi_size: int, crop_pool: int, seg_pool: int):
+        super().__init__()
+        self.yolo = yolo
+        self.resnet = resnet
+        self.input_size = tuple(input_size)
+        self.max_detections = max_detections
+        self.max_classified = max_classified
+        self.classifier_input = classifier_input
+        self.max_segmented = max_segmented
+        self.roi_size = roi_size
+        self.crop_pool = crop_pool
+        self.seg_pool = seg_pool
+        anchors, strides = make_anchors(feature_shapes(self.input_size), STRIDES)
+        self.register_buffer("anchors", anchors, persistent=False)
+        self.register_buffer("strides", strides, persistent=False)
+
+    def _input(self, images: torch.Tensor) -> torch.Tensor:
+        x = imops.to_float(images)
+        if tuple(x.shape[1:3]) != self.input_size:
+            x = imops.resize_bilinear(x, self.input_size)
+        return x
+
+    def _classify(self, crops: torch.Tensor):
+        probs = torch.softmax(self.resnet(crops).to(torch.float32), dim=-1)
+        conf, cls = torch.max(probs, dim=-1)
+        return conf, cls.to(torch.int32)
+
+    def ensemble(self, x: torch.Tensor, conf_t, iou_t: float, w_yolo: float,
+                 w_resnet: float, sev_rules: Optional[torch.Tensor] = None) -> EnsembleOutputs:
+        """Detection, classification and fusion on float images [B,H,W,3]."""
+        b = x.shape[0]
+        kc, ci = self.max_classified, self.classifier_input
+
+        dist, cls = self.yolo(x)
+        det: Detections = decode_and_nms(
+            dist, cls, self.anchors, self.strides, reg_max=self.yolo.reg_max,
+            max_detections=self.max_detections, iou_threshold=iou_t,
+            score_threshold=conf_t, box_voting=True,
+        )
+        areas = box_area(det.boxes)
+        yolo_sev = detection_severity(det.scores, areas, sev_rules)
+
+        global_probs = torch.softmax(
+            self.resnet(preprocess_for_classifier(x, ci)).to(torch.float32), dim=-1)
+
+        crops = imops.crop_and_resize(x, det.boxes[:, :kc], (ci, ci))
+        crops_flat = imops.normalize_imagenet(crops.reshape(b * kc, ci, ci, 3))
+        pool = self.crop_pool
+        if pool and pool < b * kc:
+            # one ResNet forward over the batch's best `pool` real survivors
+            flat_valid = det.valid[:, :kc].reshape(b * kc)
+            flat_scores = det.scores[:, :kc].reshape(b * kc)
+            flat_classes = det.classes[:, :kc].reshape(b * kc)
+            key = torch.where(flat_valid, flat_scores + 2.0, flat_scores)
+            idx = _top_indices(key, pool)
+            ok = flat_valid[idx]
+            p_conf, p_class = self._classify(crops_flat[idx])
+            mock = torch.clamp(flat_scores * 1.1, max=1.0)
+            cc_conf = mock.clone()
+            cc_conf[idx] = torch.where(ok, p_conf, mock[idx])
+            cc_class = flat_classes.clone()
+            cc_class[idx] = torch.where(ok, p_class, flat_classes[idx])
+            classified_kc = torch.zeros(b * kc, dtype=torch.bool, device=x.device)
+            classified_kc[idx] = ok
+            cc_conf, cc_class = cc_conf.reshape(b, kc), cc_class.reshape(b, kc)
+            classified_kc = classified_kc.reshape(b, kc)
+            cc_sev = torch.where(classified_kc,
+                                 classifier_severity(cc_class, cc_conf, sev_rules),
+                                 yolo_sev[:, :kc])
+        else:
+            cc_conf, cc_class = self._classify(crops_flat)
+            cc_conf, cc_class = cc_conf.reshape(b, kc), cc_class.reshape(b, kc)
+            cc_sev = classifier_severity(cc_class, cc_conf, sev_rules)
+            classified_kc = torch.ones((b, kc), dtype=torch.bool, device=x.device)
+
+        pad = self.max_detections - kc
+        crop_conf = torch.cat([cc_conf, torch.clamp(det.scores[:, kc:] * 1.1, max=1.0)], dim=1)
+        crop_class = torch.cat([cc_class, det.classes[:, kc:]], dim=1)
+        crop_sev = torch.cat([cc_sev, yolo_sev[:, kc:]], dim=1)
+        classified = torch.cat(
+            [classified_kc, torch.zeros((b, pad), dtype=torch.bool, device=x.device)], dim=1)
+
+        v = det.valid
+        ens_conf = torch.where(v, w_yolo * det.scores + w_resnet * crop_conf,
+                               torch.zeros_like(crop_conf))
+        final_sev = torch.maximum(yolo_sev, crop_sev)
+        counts = torch.stack([(v & (final_sev == s)).sum(dim=1) for s in (0, 1, 2)],
+                             dim=-1).to(torch.int32)
+        n_valid = torch.clamp(v.sum(dim=1), min=1)
+        mean_yolo = torch.where(
+            v.any(dim=1),
+            torch.where(v, det.scores, torch.zeros_like(det.scores)).sum(dim=1) / n_valid,
+            torch.zeros(b, device=x.device))
+        img_conf = w_yolo * mean_yolo + w_resnet * global_probs.max(dim=-1).values
+        return EnsembleOutputs(
+            boxes=det.boxes, yolo_scores=det.scores, classes=det.classes, valid=v,
+            areas=areas, yolo_severity=yolo_sev, crop_class=crop_class, crop_conf=crop_conf,
+            crop_severity=crop_sev, crop_classified=classified, ensemble_conf=ens_conf,
+            final_severity=final_sev, severity_counts=counts, global_probs=global_probs,
+            image_confidence=img_conf,
+        )
+
+    def forward(self, images: torch.Tensor, conf_t, iou_t: float, w_yolo: float,
+                w_resnet: float, sev_rules: Optional[torch.Tensor] = None):
+        """images [B,H,W,3] uint8 or float -> (det [B,K,15], img [B,4+C],
+        masks [B,S,R,R] bool, seg_stats [B,S,5])."""
+        x = self._input(images)
+        out = self.ensemble(x, conf_t, iou_t, w_yolo, w_resnet, sev_rules)
+        det, img = pack_outputs(out)
+        gray = imops.rgb_to_gray(x)
+        b, s, r = x.shape[0], self.max_segmented, self.roi_size
+        boxes = out.boxes[:, :s]
+        rois = imops.crop_and_resize(gray[..., None], boxes, (r, r))[..., 0].reshape(b * s, r, r)
+        flat_boxes = boxes.reshape(b * s, 4)
+        flat_cls = out.classes[:, :s].reshape(b * s)
+        flat_valid = out.valid[:, :s].reshape(b * s)
+
+        def scales(bx):
+            bw = torch.clamp(bx[:, 2] - bx[:, 0], min=1.0)
+            bh = torch.clamp(bx[:, 3] - bx[:, 1], min=1.0)
+            return bw / r, bh / r
+
+        pool = self.seg_pool
+        if pool and pool < b * s:
+            # segment only the batch's best `pool` real survivors; the rest
+            # get an empty mask, zero statistics and their class's method id
+            key = torch.where(flat_valid, out.yolo_scores[:, :s].reshape(b * s) + 2.0,
+                              out.yolo_scores[:, :s].reshape(b * s))
+            idx = _top_indices(key, pool)
+            sx, sy = scales(flat_boxes[idx])
+            sp = segment_rois(rois[idx], flat_cls[idx], flat_valid[idx], sx, sy)
+            masks = torch.zeros((b * s, r, r), dtype=torch.bool, device=x.device)
+            masks[idx] = sp.masks
+            stats = torch.zeros((b * s, 5), dtype=torch.float32, device=x.device)
+            for col, val in enumerate((sp.area, sp.perimeter, sp.compactness, sp.confidence)):
+                stats[idx, col] = val.to(torch.float32)
+            n_cls = len(CLASS_TO_METHOD)
+            stats[:, 4] = table_lookup(CLASS_TO_METHOD,
+                                       torch.clamp(flat_cls.long(), 0, n_cls - 1)).to(torch.float32)
+        else:
+            sx, sy = scales(flat_boxes)
+            sp = segment_rois(rois, flat_cls, flat_valid, sx, sy)
+            masks = sp.masks
+            stats = torch.stack([sp.area, sp.perimeter, sp.compactness, sp.confidence,
+                                 sp.method.to(torch.float32)], dim=-1)
+        return det, img, masks.reshape(b, s, r, r), stats.reshape(b, s, 5)
+
+
+def pack_outputs(out: EnsembleOutputs):
+    """det [B,K,15] = boxes(4), yolo_score, class, valid, area, yolo_severity,
+    crop_class, crop_conf, crop_severity, crop_classified, ensemble_conf,
+    final_severity; img [B,4+C] = severity counts(3), global probs(C),
+    image confidence."""
+    f = lambda t: t.to(torch.float32)
+    det = torch.cat(
+        [f(out.boxes)] + [f(t)[..., None] for t in (
+            out.yolo_scores, out.classes, out.valid, out.areas, out.yolo_severity,
+            out.crop_class, out.crop_conf, out.crop_severity, out.crop_classified,
+            out.ensemble_conf, out.final_severity)],
+        dim=-1)
+    img = torch.cat([f(out.severity_counts), f(out.global_probs),
+                     f(out.image_confidence)[..., None]], dim=-1)
+    return det, img
+
+
+def unpack_outputs(det: np.ndarray, img: np.ndarray) -> EnsembleOutputs:
+    """Host-side inverse of pack_outputs (numpy in, numpy out)."""
+    det = np.asarray(det)
+    img = np.asarray(img)
+    return EnsembleOutputs(
+        boxes=det[..., 0:4], yolo_scores=det[..., 4], classes=det[..., 5].astype(np.int32),
+        valid=det[..., 6] > 0.5, areas=det[..., 7], yolo_severity=det[..., 8].astype(np.int32),
+        crop_class=det[..., 9].astype(np.int32), crop_conf=det[..., 10],
+        crop_severity=det[..., 11].astype(np.int32), crop_classified=det[..., 12] > 0.5,
+        ensemble_conf=det[..., 13], final_severity=det[..., 14].astype(np.int32),
+        severity_counts=img[..., 0:3].astype(np.int32), global_probs=img[..., 3:-1],
+        image_confidence=img[..., -1],
+    )
+
+
+def assess_overall_quality(n_minor: int, n_major: int, n_critical: int) -> Dict:
+    """A-F grading from the per-image severity counts."""
+    total = n_minor + n_major + n_critical
+    if total == 0:
+        return {
+            "quality_grade": "A", "pass_fail": "PASS", "defect_density": 0.0,
+            "risk_level": "low", "recommended_action": "accept",
+        }
+    if n_critical > 0:
+        grade, pf, risk, action = "F", "FAIL", "high", "reject"
+    elif n_major > 2:
+        grade, pf, risk, action = "D", "FAIL", "high", "reject"
+    elif n_major > 0:
+        grade, pf, risk, action = "C", "CONDITIONAL", "medium", "review"
+    elif n_minor > 3:
+        grade, pf, risk, action = "B", "CONDITIONAL", "low", "review"
+    else:
+        grade, pf, risk, action = "A", "PASS", "low", "accept"
+    return {
+        "quality_grade": grade, "pass_fail": pf, "defect_density": total,
+        "risk_level": risk, "recommended_action": action,
+        "defect_breakdown": {"critical": n_critical, "major": n_major, "minor": n_minor},
+    }
+
+
+class EnsemblePredictor:
+    """Owns both networks and the full forward on one device."""
+
+    def __init__(self, yolo_weights: Optional[str] = None,
+                 resnet_weights: Optional[str] = None,
+                 config: Optional[SystemConfig] = None, device="cuda"):
+        cfg = config or SystemConfig()
+        if isinstance(cfg, dict):
+            cfg = SystemConfig.from_dict(cfg)
+        self.config = cfg
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            # float32 convolutions and matmuls in full float32 (cuDNN would
+            # take TF32 by default), so that the card's results compare with
+            # the CPU's and the JAX reference's
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        m = cfg.model
+        self.class_names = list(cfg.quality_control.defect_classes)
+        self.ensemble_weights = dict(m.ensemble_weights)
+        self.confidence_threshold = m.confidence_threshold
+        self.nms_threshold = m.nms_threshold
+        self.input_size = tuple(cfg.processing.input_size)
+        self.max_detections = m.max_detections
+        self.max_classified = m.max_classified
+
+        self.yolo = YOLOv8(num_classes=m.num_classes, width_mult=m.width_mult,
+                           depth_mult=m.depth_mult, reg_max=m.reg_max, stem_mode=m.yolo_stem)
+        self.resnet = ResNet50(num_classes=m.num_classes, stage_sizes=m.resnet_stages)
+        # "checkpoint" or "initialized" per network, surfaced by get_model_info
+        self.weights_source: Dict[str, str] = {
+            "yolo": self._init_or_load(self.yolo, yolo_weights or m.yolo_weights, seed=0),
+            "resnet": self._init_or_load(self.resnet, resnet_weights or m.resnet_weights, seed=1),
+        }
+        self.precision_report = None
+        self.pruning_report = None
+        self._counter_lock = threading.Lock()
+        self.crop_classified_total = 0
+        self.mock_tail_total = 0
+        self._forward_full = FullForward(
+            self.yolo, self.resnet, self.input_size, self.max_detections,
+            self.max_classified, classifier_input=m.classifier_input,
+            max_segmented=m.max_segmented, roi_size=m.seg_roi_size,
+            crop_pool=m.max_classified_pool, seg_pool=m.max_segmented_pool,
+        ).to(self.device).eval()
+
+    @staticmethod
+    def _init_or_load(module: nn.Module, path: str, seed: int) -> str:
+        """Fill ``module`` from the Flax checkpoint at ``path`` (relative paths
+        from the repository root) and return "checkpoint". A missing file, or
+        no path, leaves seeded random weights and returns "initialized"; a
+        malformed or mismatched file raises."""
+        init_random(module, seed)
+        if not path:
+            return "initialized"
+        full = resolve_path(path)
+        if not os.path.exists(full):
+            logger.warning("checkpoint %s not found; using initialized weights", full)
+            return "initialized"
+        try:
+            load_into(module, read_checkpoint(full))
+        except ValueError as e:
+            raise ValueError(f"corrupt or incompatible checkpoint {full!r}: {e}") from e
+        return "checkpoint"
+
+    def _args(self):
+        """(conf_t, iou_t, w_yolo, w_resnet, sev_rules) for the forward, with
+        the qc_specific overrides applied."""
+        qc = self.config.qc_specific
+        conf_vec = qc.conf_vector(self.class_names, self.confidence_threshold)
+        conf_t = (torch.tensor(conf_vec, dtype=torch.float32, device=self.device)
+                  if conf_vec else self.confidence_threshold)
+        nms_t = qc.nms_threshold if qc.nms_threshold is not None else self.nms_threshold
+        sev = qc.severity_array()
+        sev_t = torch.tensor(sev, dtype=torch.float32, device=self.device) if sev else None
+        return (conf_t, float(nms_t), float(self.ensemble_weights["yolo"]),
+                float(self.ensemble_weights["resnet"]), sev_t)
+
+    def run_full_host(self, images):
+        """The whole forward on a [B,H,W,3] batch (tensor or numpy). Returns
+        (EnsembleOutputs, masks [B,S,R,R], seg_stats [B,S,5]) as numpy."""
+        x = torch.as_tensor(images).to(self.device)
+        with torch.inference_mode():
+            det, img, masks, stats = self._forward_full(x, *self._args())
+            det, img, masks, stats = (t.cpu().numpy() for t in (det, img, masks, stats))
+        return unpack_outputs(det, img), masks, stats
+
+    def build_result(self, out: EnsembleOutputs, i: int, image_shape) -> Dict:
+        """Image ``i`` of fixed-capacity host arrays -> the combined-result schema."""
+        o = EnsembleOutputs(*(np.asarray(a[i]) for a in out))
+        n_valid = int(np.sum(o.valid))
+        n_real = int(np.sum(o.valid & o.crop_classified))
+        with self._counter_lock:
+            self.crop_classified_total += n_real
+            self.mock_tail_total += n_valid - n_real
+        sy = image_shape[0] / self.input_size[0]
+        sx = image_shape[1] / self.input_size[1]
+        names = self.class_names
+        name = lambda c: names[c] if 0 <= c < len(names) else f"class_{c}"
+        detections = []
+        cap = self.config.qc_specific.max_detections_per_image
+        limit = min(len(o.valid), cap) if cap else len(o.valid)
+        for j in range(limit):
+            if not o.valid[j]:
+                break
+            x1, y1, x2, y2 = o.boxes[j]
+            x1, x2 = int(x1 * sx), int(x2 * sx)
+            y1, y2 = int(y1 * sy), int(y2 * sy)
+            detections.append({
+                "id": j,
+                "class": name(int(o.classes[j])),
+                "confidence": float(o.yolo_scores[j]),
+                "bbox": {
+                    "x1": x1, "y1": y1, "x2": x2, "y2": y2,
+                    "width": x2 - x1, "height": y2 - y1,
+                    "center_x": (x1 + x2) / 2, "center_y": (y1 + y2) / 2,
+                },
+                "area": (x2 - x1) * (y2 - y1),
+                "severity": SEVERITY_NAMES[int(o.yolo_severity[j])],
+                "ensemble_confidence": float(o.ensemble_conf[j]),
+                "yolo_confidence": float(o.yolo_scores[j]),
+                "resnet_confidence": float(o.crop_conf[j]),
+                "classification_details": {
+                    "predicted_class": name(int(o.crop_class[j])),
+                    "confidence": float(o.crop_conf[j]),
+                    "region_severity": SEVERITY_NAMES[int(o.crop_severity[j])],
+                    "classification_source": "crop_resnet" if bool(o.crop_classified[j])
+                    else "ensemble_refined",
+                },
+                "final_severity": SEVERITY_NAMES[int(o.final_severity[j])],
+            })
+        if cap and len(detections) == limit and n_valid > limit:
+            # the cap truncated the list: grade what is reported
+            sev_kept = o.final_severity[:limit]
+            n_minor, n_major, n_crit = (int(np.sum(sev_kept == s)) for s in (0, 1, 2))
+        else:
+            n_minor, n_major, n_crit = (int(c) for c in o.severity_counts)
+        global_cls = int(np.argmax(o.global_probs))
+        return {
+            "detections": detections,
+            "global_classification": {
+                "predicted_class": names[global_cls],
+                "confidence": float(np.max(o.global_probs)),
+                "class_probabilities": {names[k]: float(p) for k, p in enumerate(o.global_probs)},
+            },
+            "detection_summary": self._summary(detections),
+            "quality_assessment": assess_overall_quality(n_minor, n_major, n_crit),
+            "ensemble_confidence": float(o.image_confidence),
+        }
+
+    @staticmethod
+    def _summary(detections: List[Dict]) -> Dict:
+        if not detections:
+            return {
+                "total_defects": 0, "defect_counts": {}, "severity_distribution": {},
+                "average_confidence": 0.0, "max_severity": "none",
+            }
+        counts: Dict[str, int] = {}
+        sev_counts = {"minor": 0, "major": 0, "critical": 0}
+        for d in detections:
+            counts[d["class"]] = counts.get(d["class"], 0) + 1
+            sev_counts[d["final_severity"]] += 1
+        max_sev = next((s for s in ("critical", "major", "minor") if sev_counts[s]), "none")
+        return {
+            "total_defects": len(detections),
+            "defect_counts": counts,
+            "severity_distribution": sev_counts,
+            "average_confidence": float(np.mean([d["ensemble_confidence"] for d in detections])),
+            "max_severity": max_sev,
+        }
+
+    def get_model_info(self) -> Dict:
+        return {
+            "ensemble_weights": self.ensemble_weights,
+            "confidence_threshold": self.confidence_threshold,
+            "models_loaded": {"yolo": True, "resnet": True},
+            "weights_source": dict(self.weights_source),
+            "untrained_weights": any(v != "checkpoint" for v in self.weights_source.values()),
+            "yolo_info": {
+                "input_size": self.input_size,
+                "max_detections": self.max_detections,
+                "class_names": self.class_names,
+            },
+            "resnet_info": {
+                "num_classes": len(self.class_names),
+                "input_size": (224, 224),
+                "max_classified_crops": self.max_classified,
+            },
+            "fused_graph": True,
+            "serving_precision": self.config.edge.precision,
+            "precision_report": self.precision_report,
+            "pruning_report": self.pruning_report,
+            "device": str(self.device),
+        }

@@ -1,0 +1,207 @@
+"""YOLOv8 detector (backbone, PAN neck, decoupled DFL head) for inference.
+
+The public forward takes NHWC float images [B,H,W,3] and returns
+(dist_logits [B,A,4*reg_max], cls_logits [B,A,C]) flattened over the P3, P4
+and P5 grids in that order (strides 8, 16, 32), row-major within a grid, as
+the JAX package does. Inside, activations are NCHW.
+
+Width and depth multipliers follow the YOLOv8 family (n: 0.25/0.334);
+channels snap to multiples of 8. BatchNorm epsilon is 1e-3.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from iqc_tpu_torch.models.layers import BatchNorm
+
+STRIDES = (8, 16, 32)
+
+
+def _make_divisible(x: float, divisor: int = 8) -> int:
+    return max(divisor, int(round(x / divisor) * divisor))
+
+
+def _depth(n: int, depth_mult: float) -> int:
+    return max(1, round(n * depth_mult))
+
+
+class ConvBN(nn.Module):
+    """Conv (no bias, symmetric k//2 padding) + BatchNorm + SiLU."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(cin, cout, kernel, stride, kernel // 2, bias=False)
+        self.BatchNorm_0 = BatchNorm(cout, eps=1e-3)
+
+    def forward(self, x):
+        return F.silu(self.BatchNorm_0(self.Conv_0(x)))
+
+
+class C2fBottleneck(nn.Module):
+    def __init__(self, cin: int, c: int, shortcut: bool):
+        super().__init__()
+        self.ConvBN_0 = ConvBN(cin, c, 3)
+        self.ConvBN_1 = ConvBN(c, c, 3)
+        self.add = shortcut and cin == c
+
+    def forward(self, x):
+        y = self.ConvBN_1(self.ConvBN_0(x))
+        return x + y if self.add else y
+
+
+class C2f(nn.Module):
+    """Cross-stage partial block with n inner bottlenecks."""
+
+    def __init__(self, cin: int, features: int, n: int, shortcut: bool):
+        super().__init__()
+        c = features // 2
+        self.c = c
+        self.ConvBN_0 = ConvBN(cin, 2 * c, 1)
+        for i in range(n):
+            setattr(self, f"C2fBottleneck_{i}", C2fBottleneck(c, c, shortcut))
+        self.n = n
+        self.ConvBN_1 = ConvBN((2 + n) * c, features, 1)
+
+    def forward(self, x):
+        y = self.ConvBN_0(x)
+        parts = [y[:, :self.c], y[:, self.c:]]
+        for i in range(self.n):
+            parts.append(getattr(self, f"C2fBottleneck_{i}")(parts[-1]))
+        return self.ConvBN_1(torch.cat(parts, dim=1))
+
+
+class SPPF(nn.Module):
+    """Spatial pyramid pooling (fast): three chained 5x5 max pools."""
+
+    def __init__(self, cin: int, features: int):
+        super().__init__()
+        c = features // 2
+        self.ConvBN_0 = ConvBN(cin, c, 1)
+        self.ConvBN_1 = ConvBN(4 * c, features, 1)
+
+    def forward(self, x):
+        x = self.ConvBN_0(x)
+        p1 = F.max_pool2d(x, 5, 1, 2)
+        p2 = F.max_pool2d(p1, 5, 1, 2)
+        p3 = F.max_pool2d(p2, 5, 1, 2)
+        return self.ConvBN_1(torch.cat([x, p1, p2, p3], dim=1))
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsample of NCHW."""
+    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+
+
+def space_to_depth(x: torch.Tensor, block: int) -> torch.Tensor:
+    """NHWC [B,H,W,C] -> [B,H/b,W/b,C*b*b], channel order (dy, dx, c)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // block, block, w // block, block, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // block, w // block, c * block * block)
+
+
+class DetectHead(nn.Module):
+    """Decoupled anchor-free head with DFL box regression (one scale)."""
+
+    def __init__(self, cin: int, num_classes: int, reg_max: int, box_ch: int, cls_ch: int):
+        super().__init__()
+        self.ConvBN_0 = ConvBN(cin, box_ch, 3)
+        self.ConvBN_1 = ConvBN(box_ch, box_ch, 3)
+        self.box_out = nn.Conv2d(box_ch, 4 * reg_max, 1)
+        self.ConvBN_2 = ConvBN(cin, cls_ch, 3)
+        self.ConvBN_3 = ConvBN(cls_ch, cls_ch, 3)
+        self.cls_out = nn.Conv2d(cls_ch, num_classes, 1)
+
+    def forward(self, x):
+        dist = self.box_out(self.ConvBN_1(self.ConvBN_0(x)))
+        cls = self.cls_out(self.ConvBN_3(self.ConvBN_2(x)))
+        return dist, cls
+
+
+class YOLOv8(nn.Module):
+    def __init__(self, num_classes: int = 5, width_mult: float = 0.25,
+                 depth_mult: float = 0.334, reg_max: int = 16, stem_mode: str = "conv"):
+        super().__init__()
+        self.num_classes = num_classes
+        self.reg_max = reg_max
+        self.stem_mode = stem_mode
+        ch = lambda c: _make_divisible(min(c, 1024) * width_mult)
+        dp = lambda n: _depth(n, depth_mult)
+
+        if stem_mode == "s2d":
+            self.stem_s2d = ConvBN(48, ch(128), 3, 1)
+        else:
+            self.stem = ConvBN(3, ch(64), 3, 2)
+            self.down2 = ConvBN(ch(64), ch(128), 3, 2)
+        self.c2f_2 = C2f(ch(128), ch(128), dp(3), True)
+        self.down3 = ConvBN(ch(128), ch(256), 3, 2)
+        self.c2f_3 = C2f(ch(256), ch(256), dp(6), True)
+        self.down4 = ConvBN(ch(256), ch(512), 3, 2)
+        self.c2f_4 = C2f(ch(512), ch(512), dp(6), True)
+        self.down5 = ConvBN(ch(512), ch(1024), 3, 2)
+        self.c2f_5 = C2f(ch(1024), ch(1024), dp(3), True)
+        self.sppf = SPPF(ch(1024), ch(1024))
+        self.neck_td4 = C2f(ch(1024) + ch(512), ch(512), dp(3), False)
+        self.neck_td3 = C2f(ch(512) + ch(256), ch(256), dp(3), False)
+        self.neck_down4 = ConvBN(ch(256), ch(256), 3, 2)
+        self.neck_bu4 = C2f(ch(256) + ch(512), ch(512), dp(3), False)
+        self.neck_down5 = ConvBN(ch(512), ch(512), 3, 2)
+        self.neck_bu5 = C2f(ch(512) + ch(1024), ch(1024), dp(3), False)
+        box_ch = max(16, ch(256) // 4, 4 * reg_max)
+        cls_ch = max(ch(256), min(num_classes, 100))
+        for i, cin in zip((3, 4, 5), (ch(256), ch(512), ch(1024))):
+            setattr(self, f"head_p{i}", DetectHead(cin, num_classes, reg_max, box_ch, cls_ch))
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: NHWC float [B,H,W,3]."""
+        if self.stem_mode == "s2d":
+            x = self.stem_s2d(space_to_depth(x, 4).permute(0, 3, 1, 2))
+        else:
+            x = self.down2(self.stem(x.permute(0, 3, 1, 2)))
+        x = self.c2f_2(x)
+        p3 = self.c2f_3(self.down3(x))
+        p4 = self.c2f_4(self.down4(p3))
+        p5 = self.sppf(self.c2f_5(self.down5(p4)))
+        n4 = self.neck_td4(torch.cat([upsample2x(p5), p4], dim=1))
+        o3 = self.neck_td3(torch.cat([upsample2x(n4), p3], dim=1))
+        o4 = self.neck_bu4(torch.cat([self.neck_down4(o3), n4], dim=1))
+        o5 = self.neck_bu5(torch.cat([self.neck_down5(o4), p5], dim=1))
+        dists, clss = [], []
+        for i, feat in zip((3, 4, 5), (o3, o4, o5)):
+            dist, cls = getattr(self, f"head_p{i}")(feat)
+            b = dist.shape[0]
+            dists.append(dist.permute(0, 2, 3, 1).reshape(b, -1, 4 * self.reg_max))
+            clss.append(cls.permute(0, 2, 3, 1).reshape(b, -1, self.num_classes))
+        return torch.cat(dists, dim=1), torch.cat(clss, dim=1)
+
+
+def feature_shapes(input_size: Tuple[int, int]) -> List[Tuple[int, int]]:
+    return [(input_size[0] // s, input_size[1] // s) for s in STRIDES]
+
+
+SEV_MINOR, SEV_MAJOR, SEV_CRITICAL = 0, 1, 2
+
+
+def detection_severity(confidences: torch.Tensor, areas: torch.Tensor,
+                       rules: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """conf/area -> severity {0,1,2}; area normalised by 1024^2 whatever the
+    image size. ``rules``: optional [2,>=2] tensor
+    [[major_conf, major_area_ratio, ...], [critical_conf, critical_area_ratio, ...]];
+    None uses 0.8/0.05 and 0.9/0.1."""
+    norm_area = areas / float(1024 * 1024)
+    if rules is None:
+        major_c, major_a, crit_c, crit_a = 0.8, 0.05, 0.9, 0.1
+    else:
+        major_c, major_a = rules[0, 0], rules[0, 1]
+        crit_c, crit_a = rules[1, 0], rules[1, 1]
+    sev = torch.full(confidences.shape, SEV_MINOR, dtype=torch.int32, device=confidences.device)
+    sev = torch.where((confidences > major_c) | (norm_area > major_a),
+                      torch.full_like(sev, SEV_MAJOR), sev)
+    sev = torch.where((confidences > crit_c) | (norm_area > crit_a),
+                      torch.full_like(sev, SEV_CRITICAL), sev)
+    return sev

@@ -1,0 +1,203 @@
+"""Reader for the Flax msgpack checkpoints, and Flax -> PyTorch parameter mapping.
+
+Flax's ``serialization.to_bytes`` writes a nested msgpack map (top level
+``params`` and ``batch_stats``) whose leaves are ext type 1 records. Each
+record's payload is itself msgpack: ``(shape, dtype name, raw C-order bytes)``.
+This module decodes that subset of msgpack with ``struct`` and numpy alone:
+maps, arrays, strings, bin, ext/fixext, ints, floats, bool and nil. Anything
+else raises.
+
+``from_flax`` renames a Flax variables tree to the state dict of the port's
+modules, whose submodule names follow the Flax scopes (``Conv_0``,
+``BatchNorm_0``, ``stage1_block1`` ...): conv kernels HWIO -> OIHW, dense
+kernels [in,out] -> [out,in], BatchNorm ``scale``/``mean``/``var`` ->
+``weight``/``running_mean``/``running_var``.
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+_EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3
+
+
+class _Reader:
+    def __init__(self, data: bytes):
+        self.buf = memoryview(data)
+        self.pos = 0
+
+    def take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.buf):
+            raise ValueError("truncated msgpack data")
+        out = self.buf[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def unpack(self, fmt: str):
+        size = struct.calcsize(fmt)
+        return struct.unpack(fmt, self.take(size))[0]
+
+    def value(self) -> Any:
+        b = self.unpack(">B")
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self._map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return self._array(b & 0x0F)
+        if 0xA0 <= b <= 0xBF:
+            return self._str(b & 0x1F)
+        if b == 0xC0:
+            return None
+        if b == 0xC2:
+            return False
+        if b == 0xC3:
+            return True
+        if b in (0xC4, 0xC5, 0xC6):
+            n = self.unpack({0xC4: ">B", 0xC5: ">H", 0xC6: ">I"}[b])
+            return bytes(self.take(n))
+        if b in (0xC7, 0xC8, 0xC9):
+            n = self.unpack({0xC7: ">B", 0xC8: ">H", 0xC9: ">I"}[b])
+            return self._ext(n)
+        if b == 0xCA:
+            return self.unpack(">f")
+        if b == 0xCB:
+            return self.unpack(">d")
+        ints = {0xCC: ">B", 0xCD: ">H", 0xCE: ">I", 0xCF: ">Q",
+                0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q"}
+        if b in ints:
+            return self.unpack(ints[b])
+        if b in (0xD4, 0xD5, 0xD6, 0xD7, 0xD8):
+            return self._ext(1 << (b - 0xD4))
+        if b in (0xD9, 0xDA, 0xDB):
+            n = self.unpack({0xD9: ">B", 0xDA: ">H", 0xDB: ">I"}[b])
+            return self._str(n)
+        if b in (0xDC, 0xDD):
+            return self._array(self.unpack(">H" if b == 0xDC else ">I"))
+        if b in (0xDE, 0xDF):
+            return self._map(self.unpack(">H" if b == 0xDE else ">I"))
+        raise ValueError(f"unsupported msgpack type byte 0x{b:02x}")
+
+    def _str(self, n: int) -> str:
+        return bytes(self.take(n)).decode("utf-8")
+
+    def _array(self, n: int) -> list:
+        return [self.value() for _ in range(n)]
+
+    def _map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            k = self.value()
+            out[k] = self.value()
+        return out
+
+    def _ext(self, n: int):
+        code = self.unpack(">b")
+        payload = bytes(self.take(n))
+        if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            raise ValueError(f"unsupported msgpack ext type {code}")
+        arr = _ndarray_from_payload(payload)
+        return arr if code == _EXT_NDARRAY else arr[()]
+
+
+def _ndarray_from_payload(payload: bytes) -> np.ndarray:
+    r = _Reader(payload)
+    rec = r.value()
+    if r.pos != len(payload) or not (isinstance(rec, list) and len(rec) == 3):
+        raise ValueError("malformed ndarray record")
+    shape, dtype_name, raw = rec
+    if isinstance(dtype_name, bytes):
+        dtype_name = dtype_name.decode()
+    if not isinstance(raw, bytes):
+        raise ValueError("ndarray record without a byte buffer")
+    shape = tuple(int(s) for s in shape)
+    try:
+        dtype = np.dtype(dtype_name)
+    except TypeError as e:
+        raise ValueError(f"unsupported array dtype {dtype_name!r}") from e
+    return np.frombuffer(raw, dtype=dtype).copy().reshape(shape)
+
+
+def read_msgpack(data: bytes) -> Any:
+    """Decode one msgpack object (Flax checkpoint subset)."""
+    r = _Reader(data)
+    out = r.value()
+    if r.pos != len(data):
+        raise ValueError("trailing bytes after msgpack object")
+    return out
+
+
+def read_checkpoint(path: str) -> Dict[str, Any]:
+    """Flax variables tree {collection: nested dict of numpy arrays}.
+    A missing file raises FileNotFoundError."""
+    with open(path, "rb") as f:
+        tree = read_msgpack(f.read())
+    if not isinstance(tree, dict):
+        raise ValueError(f"{path}: top level is not a map")
+    return tree
+
+
+def flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
+    """Nested dict -> {key path: leaf}."""
+    out = {}
+    for k, v in tree.items():
+        path = prefix + (str(k),)
+        if isinstance(v, dict):
+            out.update(flatten(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+_RENAME = {
+    ("params", "kernel"): "weight",
+    ("params", "bias"): "bias",
+    ("params", "scale"): "weight",
+    ("batch_stats", "mean"): "running_mean",
+    ("batch_stats", "var"): "running_var",
+}
+
+
+def from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax variables {params, batch_stats} (numpy leaves) -> state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for (collection, *scope, leaf), value in flatten(variables).items():
+        name = _RENAME.get((collection, leaf))
+        if name is None:
+            raise ValueError(f"unexpected Flax leaf {collection}/{'/'.join(scope)}/{leaf}")
+        arr = np.asarray(value, dtype=np.float32)
+        if leaf == "kernel" and arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        elif leaf == "kernel" and arr.ndim == 2:
+            arr = arr.T  # [in,out] -> [out,in]
+        key = ".".join(scope + [name])
+        if key in sd:
+            raise ValueError(f"duplicate parameter {key}")
+        sd[key] = torch.from_numpy(np.array(arr, order="C", copy=True))
+    return sd
+
+
+def load_into(module: torch.nn.Module, variables: Dict[str, Any]) -> None:
+    """Fill ``module`` from a Flax tree: the key sets must be equal and every
+    leaf shape must match, else ValueError."""
+    sd = from_flax(variables)
+    own = module.state_dict()
+    missing = sorted(set(own) - set(sd))
+    extra = sorted(set(sd) - set(own))
+    if missing or extra:
+        raise ValueError(
+            f"checkpoint structure mismatch: {len(extra)} key(s) not in model "
+            f"(e.g. {extra[:5]}), {len(missing)} model key(s) absent (e.g. {missing[:5]})"
+        )
+    for k, v in sd.items():
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"checkpoint leaf {k} has shape {tuple(v.shape)}, "
+                             f"model expects {tuple(own[k].shape)}")
+    module.load_state_dict(sd, strict=True)
