@@ -7,8 +7,11 @@ Phases, each under a deadline and printed with its wall time:
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
   2. build: one nvcc call compiles iqc_tpu_torch/csrc/*.cu for sm_90a;
   3. kernels: each CUDA kernel against its plain PyTorch version on the card
-     at the main path's shapes (must be exactly equal), with its time, the
-     plain version's time and its bound;
+     (must be exactly equal) at the shapes of one predict request (1 image,
+     16 ROIs) and of predict_batch of 8 (8 images, 64 ROIs), with its device
+     time (graph replay of the raw entry point), its wrapper's time, the
+     plain version's time and its bound; then inputs that end the kernels'
+     loops early or never;
   4. main path: the shipped serving profile (YOLOv8n 640^2, ResNet-50 on
      128^2 crops, crop pool 128, seg pool 64, float32) from the shipped
      checkpoints; 4 x predict and 1 x predict_batch of 8 on seeded synthetic
@@ -206,65 +209,219 @@ def phase_build():
           f"(nvcc {' '.join(build.NVCC_FLAGS)})")
 
 
-def phase_kernels(torch):
+# (label, images for K1, ROIs for K2; K3 cleans one more): one predict, and
+# predict_batch of 8 on the seg pool of 64
+SHAPES = (("request", 1, 16), ("batch", 8, 64))
+THRESHOLD, ROUNDS, GROW, FILL = 0.5, 16, 24, 16
+
+
+def graph_ms(torch, launch, iters=50, replays=5):
+    """Device time of one launch with no host cost: `iters` launches captured
+    in a CUDA graph, replayed between two events; the median of `replays`
+    replays, over `iters`."""
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[replays // 2]
+
+
+def profiler_ms(torch, fn, kernel, iters=20):
+    """Per-launch device time of the CUDA kernels whose name holds `kernel`,
+    from torch.profiler over `iters` calls of fn; None where the profiler
+    records no device time for them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for e in prof.key_averages():
+            if kernel in e.key:
+                total += getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+                count += e.count
+    except Exception as e:  # the profiler is an optional second opinion
+        print(f"profiler: {type(e).__name__}: {e}")
+        return None
+    return total / count / 1e3 if count and total > 0 else None
+
+
+def suppress_rounds(torch, boxes, iterations):
+    """Rounds each image runs with the early exit: up to the first round that
+    changes nothing, at most `iterations` (from the plain iteration)."""
+    from iqc_tpu_torch.ops.boxes import iou_matrix
+
+    k = boxes.shape[1]
+    idx = torch.arange(k, device=boxes.device)
+    t = torch.tensor(THRESHOLD, dtype=torch.float32, device=boxes.device)
+    overlap = (iou_matrix(boxes, boxes) > t) & (idx[:, None] < idx[None, :])
+    keep = torch.ones(boxes.shape[:2], dtype=torch.bool, device=boxes.device)
+    rounds = torch.zeros(boxes.shape[0], dtype=torch.int64, device=boxes.device)
+    done = torch.zeros(boxes.shape[0], dtype=torch.bool, device=boxes.device)
+    for _ in range(iterations):
+        new = ~torch.any(overlap & keep[..., :, None], dim=-2)
+        rounds += (~done).long()
+        done |= (new == keep).all(-1)
+        keep = new
+    return rounds.tolist()
+
+
+def kernel_cases(torch, dev, images, rois, cdll=None):
+    """K1-K3 at one shape: for each, its wrapper call, a launch of its raw
+    entry point (from `cdll`, by default the port's library) into the
+    output `out` allocated beforehand, its plain version, and the bytes and
+    operations of its bound."""
+    from iqc_tpu_torch import build
     from iqc_tpu_torch.ops import morph_kernel, nms_kernel
 
-    dev = torch.device("cuda")
-    rows = []
+    cdll = cdll or build.library().cdll
 
-    boxes = nms_inputs(torch, dev)
-    got = nms_kernel.suppress(boxes, 0.5, 16)
-    want = nms_kernel.suppress_plain(boxes, 0.5, 16)
-    torch.cuda.synchronize()
-    err = (got.int() - want.int()).abs().max().item()
-    check(err == 0, f"suppress differs from its plain version on {int((got != want).sum())} boxes")
+    def raw(fn, *args):
+        """A launch of entry point fn; tensors among args pass as their data
+        pointers, and the launch keeps them alive."""
+        values = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+
+        def launch():
+            err = fn(*values, torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"{fn.__name__} failed with CUDA error {err}")
+        launch.tensors = args
+        return launch
+
+    boxes = nms_inputs(torch, dev, batch=images)
     b, k = boxes.shape[:2]
     words = (k + 31) // 32
-    n_bytes = boxes.numel() * 4 + b * k
-    n_ops = b * (k * (k - 1) // 2) * 14 + 16 * b * k * words * 2
-    rows.append(("suppress", "iqc_tpu_torch/csrc/suppress.cu", "iqc_tpu/ops/pallas_nms.py:34",
-                 "suppress", lambda: nms_kernel.suppress(boxes, 0.5, 16),
-                 lambda: nms_kernel.suppress_plain(boxes, 0.5, 16), err, n_bytes, n_ops))
-    print(f"suppress [{b},{k},4]: equal to plain, kept {int(got.sum())} of {b * k}")
+    keep = torch.empty((b, k), dtype=torch.bool, device=dev)
+    rounds = suppress_rounds(torch, boxes, ROUNDS)
+    cases = [dict(
+        name="suppress", kernel="suppress_kernel", shape=f"[{b},{k},4]",
+        wrapper=lambda: nms_kernel.suppress(boxes, THRESHOLD, ROUNDS),
+        raw=raw(cdll.iqc_suppress, boxes, keep, b, k, THRESHOLD, ROUNDS),
+        out=keep,
+        plain=lambda: nms_kernel.suppress_plain(boxes, THRESHOLD, ROUNDS),
+        # 14 float operations per pair; 2 word operations per candidate and
+        # bitmask word in each round that this data runs
+        n_bytes=boxes.numel() * 4 + b * k,
+        n_ops=b * (k * (k - 1) // 2) * 14 + sum(rounds) * k * words * 2,
+        note=f"rounds {rounds}")]
 
-    m_raw, seeds, allow = morph_inputs(torch, dev)
+    m_raw, seeds, allow = morph_inputs(torch, dev, n=rois)
+    seeds, allow = seeds.clone(), allow.clone()  # fresh, so 16-byte aligned for the raw launch
     n, r = seeds.shape[:2]
-    wpr = n * r * r // 32
-    got = morph_kernel.grow_clean(seeds, allow, 24, 16)
-    want = morph_kernel.grow_clean_plain(seeds, allow, 24, 16)
-    torch.cuda.synchronize()
-    err = (got.int() - want.int()).abs().max().item()
-    check(err == 0, f"grow_clean differs from its plain version on {int((got != want).sum())} px")
-    rows.append(("grow_clean", "iqc_tpu_torch/csrc/morph.cu", "iqc_tpu/ops/pallas_morph.py:146",
-                 "grow_clean", lambda: morph_kernel.grow_clean(seeds, allow, 24, 16),
-                 lambda: morph_kernel.grow_clean_plain(seeds, allow, 24, 16), err,
-                 3 * n * r * r, wpr * (24 + 27) * 10))
-    print(f"grow_clean [{n},{r},{r}]: equal to plain, {int(got.sum())} px set")
-
+    out = torch.empty_like(seeds)
+    # 10 word operations per 32-pixel word and step, counted for every
+    # round; the early exits run fewer, but the byte time exceeds even this
+    # count, so it is the bound either way
+    cases.append(dict(
+        name="grow_clean", kernel="morph_kernel", shape=f"[{n},{r},{r}]",
+        wrapper=lambda: morph_kernel.grow_clean(seeds, allow, GROW, FILL),
+        raw=raw(cdll.iqc_grow_clean, seeds, allow, out, n, r, GROW, FILL),
+        out=out,
+        plain=lambda: morph_kernel.grow_clean_plain(seeds, allow, GROW, FILL),
+        n_bytes=3 * n * r * r, n_ops=n * r * r // 32 * (GROW + 27) * 10, note=""))
     # on the main path the all-ones ROI of the watershed method rides along
-    m_raw = torch.cat([m_raw, torch.ones_like(m_raw[:1])])
-    got = morph_kernel.clean(m_raw, 16)
-    want = morph_kernel.clean_plain(m_raw, 16)
-    torch.cuda.synchronize()
-    err = (got.int() - want.int()).abs().max().item()
-    check(err == 0, f"clean differs from its plain version on {int((got != want).sum())} px")
-    rows.append(("clean", "iqc_tpu_torch/csrc/morph.cu", "iqc_tpu/ops/pallas_morph.py:162",
-                 "clean", lambda: morph_kernel.clean(m_raw, 16),
-                 lambda: morph_kernel.clean_plain(m_raw, 16), err, 2 * (n + 1) * r * r,
-                 (n + 1) * r * r // 32 * 27 * 10))
-    print(f"clean [{n + 1},{r},{r}]: equal to plain, {int(got.sum())} px set")
+    masks = torch.cat([m_raw, torch.ones_like(m_raw[:1])])
+    out1 = torch.empty_like(masks)
+    cases.append(dict(
+        name="clean", kernel="morph_kernel", shape=f"[{n + 1},{r},{r}]",
+        wrapper=lambda: morph_kernel.clean(masks, FILL),
+        raw=raw(cdll.iqc_clean, masks, out1, n + 1, r, FILL),
+        out=out1,
+        plain=lambda: morph_kernel.clean_plain(masks, FILL),
+        n_bytes=2 * (n + 1) * r * r, n_ops=(n + 1) * r * r // 32 * 27 * 10, note=""))
+    return cases
 
-    measured = []
-    for name, src, replaces, key, kern, plain, err, n_bytes, n_ops in rows:
-        ms = cuda_time_ms(kern)
-        plain_ms = cuda_time_ms(plain, warmup=2, iters=10)
-        bound_ms, bound_by = bound(n_bytes, n_ops)
-        print(f"{name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound {bound_ms:.6f} ms "
-              f"({bound_by}: {n_bytes} bytes, {n_ops} ops); no single PyTorch call computes it")
-        measured.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                         "counter": key, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
-    return measured
+
+def max_err(torch, got, want):
+    torch.cuda.synchronize()
+    return (got.int() - want.int()).abs().max().item()
+
+
+def early_exit_cases(torch, dev):
+    """Equality on inputs that end the kernels' loops early or never: an
+    image whose keep settles in 2 rounds (pairs of equal boxes), the 40-deep
+    chain that still runs all 16 rounds, a ROI whose growth stops after 8
+    rounds (one seed in a 9 x 9 square) and an all-ones ROI."""
+    import numpy as np
+
+    from iqc_tpu_torch.ops import morph_kernel, nms_kernel
+
+    i = np.arange(300) // 2
+    x, y = (i % 20) * 30.0, (i // 20) * 30.0
+    pairs = torch.tensor(np.stack([x, y, x + 20, y + 20], -1)[None], dtype=torch.float32,
+                         device=dev)
+    chain = nms_inputs(torch, dev, batch=1)
+    for name, boxes, want_rounds in (("pairs", pairs, 2), ("chain", chain, ROUNDS)):
+        rounds = suppress_rounds(torch, boxes, ROUNDS)
+        check(rounds == [want_rounds], f"{name}: the plain iteration settles in {rounds} rounds")
+        err = max_err(torch, nms_kernel.suppress(boxes, THRESHOLD, ROUNDS),
+                      nms_kernel.suppress_plain(boxes, THRESHOLD, ROUNDS))
+        check(err == 0, f"suppress differs from its plain version on {name}")
+        print(f"suppress on {name}: settles after {rounds[0]} rounds, equal to plain")
+
+    seeds = torch.zeros((2, 128, 128), dtype=torch.bool, device=dev)
+    allow = torch.zeros_like(seeds)
+    allow[0, 60:69, 60:69] = True
+    seeds[0, 64, 64] = True
+    seeds[1] = allow[1] = True
+    for fill in (FILL, 0):
+        err = max_err(torch, morph_kernel.grow_clean(seeds, allow, GROW, fill),
+                      morph_kernel.grow_clean_plain(seeds, allow, GROW, fill))
+        check(err == 0, f"grow_clean (fill {fill}) differs from its plain version on the "
+                        "square and all-ones ROIs")
+    err = max_err(torch, morph_kernel.clean(allow, FILL), morph_kernel.clean_plain(allow, FILL))
+    check(err == 0, "clean differs from its plain version on the square and all-ones ROIs")
+    print("grow_clean and clean on a ROI whose growth stops after 8 rounds and an all-ones "
+          "ROI: equal to plain")
+
+
+def phase_kernels(torch):
+    dev = torch.device("cuda")
+    sources = {"suppress": ("iqc_tpu_torch/csrc/suppress.cu", "iqc_tpu/ops/pallas_nms.py:34"),
+               "grow_clean": ("iqc_tpu_torch/csrc/morph.cu", "iqc_tpu/ops/pallas_morph.py:146"),
+               "clean": ("iqc_tpu_torch/csrc/morph.cu", "iqc_tpu/ops/pallas_morph.py:162")}
+    rows = {}
+    for label, images, rois in SHAPES:
+        for c in kernel_cases(torch, dev, images, rois):
+            got, want = c["wrapper"](), c["plain"]()
+            err = max_err(torch, got, want)
+            check(err == 0, f"{c['name']} {c['shape']} differs from its plain version on "
+                            f"{int((got != want).sum())} elements")
+            device_ms = graph_ms(torch, c["raw"])
+            wrapper_ms = cuda_time_ms(c["wrapper"])
+            plain_ms = cuda_time_ms(c["plain"], warmup=2, iters=10)
+            prof_ms = profiler_ms(torch, c["wrapper"], c["kernel"])
+            bound_ms, bound_by = bound(c["n_bytes"], c["n_ops"])
+            print(f"{c['name']} {c['shape']} ({label}): equal to plain; device {device_ms:.5f} ms "
+                  f"(profiler {'not measured' if prof_ms is None else f'{prof_ms:.5f} ms'}), "
+                  f"wrapper {wrapper_ms:.5f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.7f} ms "
+                  f"({bound_by}: {c['n_bytes']} bytes, {c['n_ops']} ops) {c['note']}")
+            m = {"shape": c["shape"], "ms": device_ms, "wrapper_ms": wrapper_ms,
+                 "profiler_ms": prof_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "max_abs_err": err}
+            if label == "request":
+                src, replaces = sources[c["name"]]
+                rows[c["name"]] = {"name": c["name"], "route": "cuda", "source": src,
+                                   "replaces": replaces, "counter": c["name"], **m,
+                                   "library_ms": None}
+            else:
+                rows[c["name"]]["batch"] = m
+    early_exit_cases(torch, dev)
+    print("no single PyTorch call computes any of the three kernels' functions")
+    return list(rows.values())
 
 
 def phase_main_path(torch, images):

@@ -21,6 +21,8 @@ import subprocess
 import time
 from typing import Optional
 
+import torch
+
 from iqc_tpu_torch.config import REPO_ROOT
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -45,22 +47,33 @@ _SIGNATURES = {
 
 
 class Library:
-    """The loaded kernel library and how long its build took."""
+    """The loaded kernel library and how long its build took. ``fns`` maps
+    each entry point's name to its ctypes function, resolved once here."""
 
     def __init__(self, path: str, build_seconds: float):
         self.path = path
         self.build_seconds = build_seconds
         self.cdll = ctypes.CDLL(path)
+        self.fns = {}
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(self.cdll, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
+            self.fns[name] = fn
 
-    def call(self, name: str, *args) -> None:
-        """Launch through entry point ``name``; raise on a CUDA error code."""
-        err = getattr(self.cdll, name)(*args)
-        if err != 0:
-            raise RuntimeError(f"{name} failed with CUDA error {err}")
+
+def launch(fn, device: torch.device, *args) -> None:
+    """Call entry point ``fn`` with ``args`` and the current stream of
+    ``device``, a tensor's CUDA device (so it carries its index), making the
+    device current only where it is not; raise on a CUDA error code."""
+    if device.index is not None and device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return launch(fn, device, *args)
+    # the raw handle of the current stream, without building a torch.cuda.Stream
+    # (which enters a device context on every call)
+    err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed with CUDA error {err}")
 
 
 def nvcc_path() -> str:

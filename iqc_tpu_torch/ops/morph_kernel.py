@@ -11,10 +11,11 @@ from __future__ import annotations
 
 import torch
 
+from iqc_tpu_torch import build
 from iqc_tpu_torch.ops import image as imops
 
 LAUNCHES = {"grow_clean": 0, "clean": 0}
-MAX_SIDE = 256  # csrc/morph.cu holds a ROI bit-packed in shared memory
+MAX_SIDE = 256  # csrc/morph.cu holds a ROI's rows bit-packed in registers
 
 
 def clean_plain(mask: torch.Tensor, fill_iterations: int = 16) -> torch.Tensor:
@@ -52,15 +53,21 @@ def _check(*masks: torch.Tensor) -> None:
         raise ValueError(f"morphology kernel takes R a multiple of 32 in [32, {MAX_SIDE}], got {r}")
 
 
-def _launch(name: str, inputs, out: torch.Tensor, *ints: int) -> torch.Tensor:
-    from iqc_tpu_torch.build import library
+def _prepared(mask: torch.Tensor) -> torch.Tensor:
+    """``mask`` as the kernel reads it: bool, contiguous, 16-byte aligned."""
+    if mask.dtype != torch.bool:
+        mask = mask.bool()
+    if not mask.is_contiguous() or mask.data_ptr() % 16:
+        mask = mask.clone(memory_format=torch.contiguous_format)
+    return mask
 
-    lib = library()
+
+def _launch(name: str, inputs, *ints: int) -> torch.Tensor:
+    out = torch.empty_like(inputs[0], memory_format=torch.contiguous_format)
     if out.shape[0] == 0:
         return out
-    with torch.cuda.device(out.device):
-        lib.call(name, *(x.data_ptr() for x in inputs), out.data_ptr(), out.shape[0],
-                 out.shape[1], *ints, torch.cuda.current_stream().cuda_stream)
+    build.launch(build.library().fns[name], out.device, *(x.data_ptr() for x in inputs),
+                 out.data_ptr(), out.shape[0], out.shape[1], *ints)
     LAUNCHES[name[4:]] += 1
     return out
 
@@ -71,9 +78,7 @@ def grow_clean(seeds: torch.Tensor, allow: torch.Tensor, grow_iterations: int = 
     _check(seeds, allow)
     if seeds.device.type == "cpu":
         return grow_clean_plain(seeds.bool(), allow.bool(), grow_iterations, fill_iterations)
-    s = seeds.bool().contiguous()
-    a = allow.bool().contiguous()
-    return _launch("iqc_grow_clean", (s, a), torch.empty_like(s),
+    return _launch("iqc_grow_clean", (_prepared(seeds), _prepared(allow)),
                    int(grow_iterations), int(fill_iterations))
 
 
@@ -82,5 +87,4 @@ def clean(mask: torch.Tensor, fill_iterations: int = 16) -> torch.Tensor:
     _check(mask)
     if mask.device.type == "cpu":
         return clean_plain(mask.bool(), fill_iterations)
-    m = mask.bool().contiguous()
-    return _launch("iqc_clean", (m,), torch.empty_like(m), int(fill_iterations))
+    return _launch("iqc_clean", (_prepared(mask),), int(fill_iterations))

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from iqc_tpu_torch import build
 from iqc_tpu_torch.ops.boxes import iou_matrix
 
 LAUNCHES = {"suppress": 0}
@@ -44,16 +45,13 @@ def suppress(boxes: torch.Tensor, iou_threshold: float, iterations: int = 16) ->
     b, k, _ = boxes.shape
     if k > MAX_BOXES:
         raise ValueError(f"suppression kernel takes at most {MAX_BOXES} boxes, got {k}")
-    from iqc_tpu_torch.build import library
-
-    lib = library()
-    x = boxes.to(torch.float32).contiguous()
+    x = boxes
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        x = x.to(torch.float32).contiguous()
     keep = torch.empty((b, k), dtype=torch.bool, device=x.device)
     if b == 0 or k == 0:
         return keep
-    with torch.cuda.device(x.device):
-        lib.call("iqc_suppress", x.data_ptr(), keep.data_ptr(), b, k,
-                 float(iou_threshold), int(iterations),
-                 torch.cuda.current_stream().cuda_stream)
+    build.launch(build.library().fns["iqc_suppress"], x.device, x.data_ptr(), keep.data_ptr(),
+                 b, k, float(iou_threshold), int(iterations))
     LAUNCHES["suppress"] += 1
     return keep

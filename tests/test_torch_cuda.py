@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from iqc_tpu_torch import build
 from iqc_tpu_torch.ops import morph_kernel, nms_kernel
 
 
@@ -22,23 +23,34 @@ def cuda():
 
 
 def _boxes(batch, k, seed):
-    """Score-sorted boxes with a 40-deep overlap chain, ties at IoU 0.5 and
-    zero-area pads, offset per class by 1e5."""
+    """Score-sorted boxes offset per class by 1e5; where K allows, a 40-deep
+    overlap chain (which never settles in 16 rounds), ties at IoU 0.5 and
+    zero-area pads."""
     rng = np.random.default_rng(seed)
     cx, cy = rng.uniform(20, 620, (batch, k)), rng.uniform(20, 620, (batch, k))
     w, h = rng.uniform(8, 90, (batch, k)), rng.uniform(8, 90, (batch, k))
     boxes = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
-    x = np.arange(40) * 2.0
-    boxes[:, :40] = np.stack([x, np.zeros(40), x + 10, np.full(40, 10.0)], -1)
-    boxes[:, 40:42] = [[0, 300, 10, 310], [0, 300, 10, 305]]
-    boxes[:, -4:] = 0.0
     cls = rng.integers(0, 5, (batch, k))
-    cls[:, :42] = 0
+    if k >= 46:
+        x = np.arange(40) * 2.0
+        boxes[:, :40] = np.stack([x, np.zeros(40), x + 10, np.full(40, 10.0)], -1)
+        boxes[:, 40:42] = [[0, 300, 10, 310], [0, 300, 10, 305]]
+        boxes[:, -4:] = 0.0
+        cls[:, :42] = 0
     return torch.tensor(boxes + cls[..., None] * 1e5, dtype=torch.float32)
 
 
+def _pairs(batch, k):
+    """Disjoint pairs of equal boxes: the keep mask settles in 2 rounds."""
+    i = np.arange(k) // 2
+    x, y = (i % 20) * 30.0, (i // 20) * 30.0
+    boxes = np.stack([x, y, x + 20, y + 20], -1)
+    return torch.tensor(np.broadcast_to(boxes, (batch, k, 4)).copy(), dtype=torch.float32)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,k", [(8, 300), (1, 300), (3, 64), (2, 512)])
+@pytest.mark.parametrize("batch,k", [(8, 300), (1, 300), (3, 64), (2, 512), (1, 20), (3, 20),
+                                     (8, 20), (3, 300), (1, 512), (8, 512), (3, 33)])
 def test_suppress_kernel_equals_plain(cuda, batch, k):
     boxes = _boxes(batch, k, seed=k)
     before = nms_kernel.LAUNCHES["suppress"]
@@ -48,14 +60,134 @@ def test_suppress_kernel_equals_plain(cuda, batch, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,r", [(65, 128), (17, 128), (4, 64), (2, 256)])
-def test_morph_kernels_equal_plain(cuda, n, r):
-    rng = np.random.default_rng(n)
+@pytest.mark.parametrize("case", ["pairs", "chain"])
+@pytest.mark.parametrize("iterations", [0, 1, 2, 3, 16, 40])
+def test_suppress_kernel_early_exit_equals_plain(cuda, case, iterations):
+    """Settling in 2 rounds ends the rounds early; the 40-deep chain runs
+    every round up to `iterations`, also beyond 16."""
+    boxes = _pairs(3, 300) if case == "pairs" else _boxes(3, 300, seed=1)
+    got = nms_kernel.suppress(boxes.to(cuda), 0.5, iterations)
+    assert torch.equal(got.cpu(), nms_kernel.suppress_plain(boxes, 0.5, iterations))
+
+
+def _masks(n, r, seed):
+    rng = np.random.default_rng(seed)
     masks = torch.from_numpy(rng.random((n, r, r)) < 0.5)
     masks[0] = True  # the all-ones ROI of the watershed method
     seeds = torch.from_numpy(rng.random((n, r, r)) < 0.01)
     allow = torch.from_numpy(rng.random((n, r, r)) < 0.7)
+    return masks, seeds, allow
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r", [(65, 128), (17, 128), (4, 64), (2, 256)]
+                         + [(n, r) for r in (32, 128, 256) for n in (1, 16, 17, 64, 65)
+                            if (n, r) not in ((65, 128), (17, 128))])
+def test_morph_kernels_equal_plain(cuda, n, r):
+    masks, seeds, allow = _masks(n, r, seed=n)
     assert torch.equal(morph_kernel.clean(masks.to(cuda)).cpu(), morph_kernel.clean_plain(masks))
     for fill in (16, 0):
         got = morph_kernel.grow_clean(seeds.to(cuda), allow.to(cuda), 24, fill).cpu()
         assert torch.equal(got, morph_kernel.grow_clean_plain(seeds, allow, 24, fill))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [32, 128, 256])
+@pytest.mark.parametrize("grow,fill", [(24, 16), (3, 2), (40, 40), (0, 16), (24, 0)])
+def test_morph_kernels_early_exit_equal_plain(cuda, r, grow, fill):
+    """ROI 0 grows from one seed inside a 9 x 9 square and stops after 8
+    rounds; ROI 1 is all ones, so no round changes it; ROI 2 is empty."""
+    seeds = torch.zeros((3, r, r), dtype=torch.bool)
+    allow = torch.zeros_like(seeds)
+    c = r // 2
+    allow[0, c - 4:c + 5, c - 4:c + 5] = True
+    seeds[0, c, c] = True
+    seeds[1] = allow[1] = True
+    got = morph_kernel.grow_clean(seeds.to(cuda), allow.to(cuda), grow, fill).cpu()
+    assert torch.equal(got, morph_kernel.grow_clean_plain(seeds, allow, grow, fill))
+    got = morph_kernel.clean(allow.to(cuda), fill).cpu()
+    assert torch.equal(got, morph_kernel.clean_plain(allow, fill))
+
+
+@pytest.mark.cuda
+def test_morph_kernels_take_unaligned_and_byte_masks(cuda):
+    """A view that starts one byte into its storage, and uint8 masks."""
+    masks, seeds, allow = _masks(5, 64, seed=3)
+    flat = torch.zeros(1 + masks.numel(), dtype=torch.bool, device=cuda)
+    flat[1:] = masks.flatten().to(cuda)
+    shifted = flat[1:].view(masks.shape)
+    assert shifted.data_ptr() % 16
+    assert torch.equal(morph_kernel.clean(shifted).cpu(), morph_kernel.clean_plain(masks))
+    got = morph_kernel.grow_clean(seeds.to(cuda).to(torch.uint8), allow.to(cuda).to(torch.uint8))
+    assert torch.equal(got.cpu(), morph_kernel.grow_clean_plain(seeds, allow))
+
+
+GUARD = 4096  # bytes of sentinel on each side of a guarded output
+SENTINEL = 0xA5
+
+
+def _guarded(shape, device):
+    """A uint8 output of `shape` between two guard regions of SENTINEL."""
+    n = int(np.prod(shape))
+    buf = torch.full((n + 2 * GUARD,), SENTINEL, dtype=torch.uint8, device=device)
+    return buf, buf[GUARD:GUARD + n].view(shape)
+
+
+def _in_graph_replays(launch, per_graph=10, replays=20):
+    """`per_graph` launches captured in a CUDA graph, replayed `replays` times."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            launch()
+    for _ in range(replays):
+        graph.replay()
+    torch.cuda.synchronize()
+
+
+def _guards_intact(buf):
+    return bool((buf[:GUARD] == SENTINEL).all()) and bool((buf[-GUARD:] == SENTINEL).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,k,iterations", [(1, 300, 16), (8, 300, 16), (1, 300, 0),
+                                                (3, 512, 40), (8, 20, 16), (2, 1, 16)])
+def test_suppress_entry_point_writes_only_its_output(cuda, batch, k, iterations):
+    """The raw entry point, launched directly and from CUDA-graph replays as
+    the kernel timing does, writes its keep mask and no byte beside it."""
+    boxes = _boxes(batch, k, seed=k).to(cuda)
+    buf, keep = _guarded((batch, k), cuda)
+    fn = build.library().fns["iqc_suppress"]
+
+    def launch():
+        build.launch(fn, boxes.device, boxes.data_ptr(), keep.data_ptr(), batch, k, 0.5,
+                     iterations)
+
+    launch()
+    _in_graph_replays(launch)
+    assert _guards_intact(buf)
+    want = nms_kernel.suppress_plain(boxes.cpu(), 0.5, iterations)
+    assert torch.equal(keep.cpu().bool(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r", [(16, 128), (17, 128), (64, 128), (65, 128), (1, 32), (3, 256)])
+def test_morph_entry_points_write_only_their_outputs(cuda, n, r):
+    """As above, for both morphology entry points."""
+    masks, seeds, allow = _masks(n, r, seed=n)
+    masks, seeds, allow = (x.to(cuda) for x in (masks, seeds, allow))
+    lib = build.library()
+    buf_g, out_g = _guarded((n, r, r), cuda)
+    buf_c, out_c = _guarded((n, r, r), cuda)
+
+    def launch():
+        build.launch(lib.fns["iqc_grow_clean"], seeds.device, seeds.data_ptr(), allow.data_ptr(),
+                     out_g.data_ptr(), n, r, 24, 16)
+        build.launch(lib.fns["iqc_clean"], masks.device, masks.data_ptr(), out_c.data_ptr(), n, r,
+                     16)
+
+    launch()
+    _in_graph_replays(launch)
+    assert _guards_intact(buf_g) and _guards_intact(buf_c)
+    want = morph_kernel.grow_clean_plain(seeds.cpu(), allow.cpu(), 24, 16)
+    assert torch.equal(out_g.cpu().bool(), want)
+    assert torch.equal(out_c.cpu().bool(), morph_kernel.clean_plain(masks.cpu(), 16))
