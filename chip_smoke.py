@@ -16,18 +16,31 @@ Phases, each under a deadline and printed with its wall time:
      128^2 crops, crop pool 128, seg pool 64, float32) from the shipped
      checkpoints; 4 x predict and 1 x predict_batch of 8 on seeded synthetic
      640^2 defect images, with every kernel's launch counter read around it;
-  5. cross-check: one request again on the CPU, compared with the card's.
+  5. cross-check: one request again on the CPU, compared with the card's;
+  6. serving: the port's HTTP server (QualityControlSystem on the card, the
+     shipped profile) on 127.0.0.1 in a thread; 4 frames one by one to
+     /api/detect (the first a committed JPEG of frame 0 where libjpeg is
+     present, the rest PNG), a batch of 8 to /api/detect/batch, one frame to
+     /api/detect/base64 and the 4 frames again concurrently; every answer
+     held equal to predict of the same decoded frame, the concurrent ones to
+     the sequential ones; then predict(include_segmentation=False) and
+     predict_stream(micro_batch=4) once each, with the kernels' launch
+     counters read around each.
 Then one JSON line of kernel measurements, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits nonzero without that line.
 Needs one CUDA device; exits nonzero at once without one.
 """
 
+import base64
 import json
 import os
+import shutil
+import struct
 import subprocess
 import sys
 import threading
 import time
+import zlib
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -39,6 +52,8 @@ FP32_OPS_PER_S = 67e12
 
 CONF_FALLBACKS = (0.7, 0.5, 0.3)
 MASK_AGREEMENT = 0.999
+# frame 0 (defect_image(0)) as a JPEG of quality 90, for the JPEG decode path
+JPEG_FRAME = os.path.join(REPO, "tests", "data", "defect_frame_0.jpg")
 
 
 class PhaseFailed(Exception):
@@ -426,7 +441,6 @@ def phase_kernels(torch):
 
 def phase_main_path(torch, images):
     from iqc_tpu_torch.inference.detector import QualityControlDetector
-    from iqc_tpu_torch.ops import morph_kernel, nms_kernel
 
     t0 = time.perf_counter()
     det = QualityControlDetector(device="cuda")
@@ -440,9 +454,7 @@ def phase_main_path(torch, images):
           f"{m.max_classified_pool}, seg pool {m.max_segmented_pool}, roi {m.seg_roi_size}, "
           f"{m.compute_dtype}")
 
-    for d in (nms_kernel.LAUNCHES, morph_kernel.LAUNCHES):
-        for key in d:
-            d[key] = 0
+    reset_launches()
     results = []
     conf_used = m.confidence_threshold
     for i, img in enumerate(images[:4]):
@@ -469,7 +481,7 @@ def phase_main_path(torch, images):
             results.append(r)
             if n_regions(r):
                 break
-    launches = {**nms_kernel.LAUNCHES, **morph_kernel.LAUNCHES}
+    launches = read_launches()
     print(f"launches on the main path: {launches}")
     errors = [r["error"] for r in results if "error" in r]
     check(not errors, f"requests failed: {errors[:3]}")
@@ -519,6 +531,240 @@ def phase_cross_check(torch, det_gpu, image, conf):
           f"{qa_g['quality_grade']} on both")
 
 
+def png_bytes(img) -> bytes:
+    """An 8-bit RGB PNG of ``img`` (filter type 0 on every row)."""
+    h, w, _ = img.shape
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def multipart(name, files):
+    """A multipart/form-data body of (filename, bytes) files under ``name``."""
+    boundary = "iqcsmokeboundary"
+    parts = []
+    for filename, data in files:
+        parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="{name}"; '
+                     f'filename="{filename}"\r\n\r\n'.encode() + data + b"\r\n")
+    return b"".join(parts) + f"--{boundary}--\r\n".encode(), \
+        f"multipart/form-data; boundary={boundary}"
+
+
+def http_post(port, path, body, content_type):
+    """POST to the local server; (wall ms, status, parsed JSON body)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 headers={"Content-Type": content_type}, method="POST")
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            status, raw = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    return (time.perf_counter() - t) * 1e3, status, json.loads(raw)
+
+
+def summary(result):
+    """What an answer must share with predict of the same frame."""
+    qa = result.get("quality_assessment", {})
+    return {"detections": [(d["class"], d["final_severity"], d["bbox"]["x1"], d["bbox"]["y1"],
+                            d["bbox"]["x2"], d["bbox"]["y2"]) for d in result["detections"]],
+            "confidences": [d["ensemble_confidence"] for d in result["detections"]],
+            "grade": (qa.get("quality_grade"), qa.get("pass_fail_status"))}
+
+
+def check_same(got, want, what):
+    g, w = summary(got), summary(want)
+    check(g["detections"] == w["detections"] and g["grade"] == w["grade"],
+          f"{what}: {g['detections'][:3]} {g['grade']} differ from {w['detections'][:3]} {w['grade']}")
+    for a, b in zip(g["confidences"], w["confidences"]):
+        check(abs(a - b) <= 1e-5 * max(abs(b), 1e-6), f"{what}: confidence {a} differs from {b}")
+
+
+def reset_launches():
+    from iqc_tpu_torch.ops import morph_kernel, nms_kernel
+
+    for d in (nms_kernel.LAUNCHES, morph_kernel.LAUNCHES):
+        for key in d:
+            d[key] = 0
+
+
+def read_launches():
+    from iqc_tpu_torch.ops import morph_kernel, nms_kernel
+
+    return {**nms_kernel.LAUNCHES, **morph_kernel.LAUNCHES}
+
+
+def thread_split(det, image, n=3):
+    """predict's ms when its body runs on the calling thread (the main
+    thread; a fresh thread per call, as a threaded HTTP server calls) and
+    when predict hands it to the detector's long-lived thread from a fresh
+    thread per call."""
+    def timed(fn, out):
+        r = fn(image, True)
+        out.append((r["total_inference_time_ms"], r["stage_times_ms"]))
+
+    def fresh(fn):
+        out = []
+        for _ in range(n):
+            th = threading.Thread(target=timed, args=(fn, out))
+            th.start()
+            th.join(timeout=120)
+            check(not th.is_alive(), "predict in a fresh thread did not finish")
+        return out
+
+    main = []
+    for _ in range(n):
+        timed(det._predict, main)
+    for label, runs in (("the body on the main thread", main),
+                        ("the body on a fresh thread per call", fresh(det._predict)),
+                        ("predict from a fresh thread per call", fresh(det.predict))):
+        print(f"{label}: " + "; ".join(f"{ms:.2f} ms {st}" for ms, st in runs))
+
+
+def phase_serving(torch, images, conf):
+    import numpy as np
+
+    from iqc_tpu_torch.runtime import codec, native
+    from iqc_tpu_torch.serving.app import QualityControlSystem, _decode_image, create_app
+    from iqc_tpu_torch.serving.wsgi import serve
+
+    def tool(*cmd):
+        found = shutil.which(cmd[0]) or (os.path.exists(f"/sbin/{cmd[0]}") and f"/sbin/{cmd[0]}")
+        return run_cmd([found, *cmd[1:]], 60) if found else f"{cmd[0]} not found"
+
+    libjpeg = [ln.split(" => ")[-1] for ln in tool("ldconfig", "-p").splitlines()
+               if "libjpeg.so" in ln]
+    print(f"jpeglib.h: {os.path.exists('/usr/include/jpeglib.h')}; libjpeg in ldconfig: "
+          f"{libjpeg}; g++: {tool('g++', '--version').splitlines()[0]}")
+    print(f"native runtime: {native.native_available()}, native JPEG decoder: "
+          f"{native.jpeg_available()}")
+
+    t0 = time.perf_counter()
+    system = QualityControlSystem(device="cuda")
+    check(system.initialize_models(), "initialize_models failed: the system is in demo mode")
+    det = system.detector
+    check(det.device.type == "cuda", f"the detector runs on {det.device}, not the card")
+    det.update_config({"model": {"confidence_threshold": conf}})
+    print(f"QualityControlSystem on {det.device} in {time.perf_counter() - t0:.2f} s, "
+          f"confidence threshold {conf}")
+
+    pngs = [png_bytes(img) for img in images]
+    first = ("frame0.png", pngs[0])
+    if native.jpeg_available():
+        with open(JPEG_FRAME, "rb") as f:
+            first = ("frame0.jpg", f.read())
+        jpeg = codec.decode_image(first[1], 640)
+        err = float(np.abs(jpeg.astype(np.int32) - images[0]).mean())
+        check(jpeg.shape == images[0].shape and err < 6, f"the JPEG of frame 0 decodes {err} off")
+        print(f"JPEG of frame 0: {len(first[1])} bytes, decoded {jpeg.shape}, mean |diff| to "
+              f"the seeded frame {err:.3f}")
+    singles = [first] + [(f"frame{i}.png", pngs[i]) for i in (1, 2, 3)]
+    decoded = [_decode_image(data) for _, data in singles]
+    check(all(d is not None for d in decoded), "a payload did not decode")
+    decode_ms = []
+    for _, data in singles:
+        t = time.perf_counter()
+        _decode_image(data)
+        decode_ms.append((time.perf_counter() - t) * 1e3)
+    # the answers each HTTP request must give, computed before the counted run
+    direct = [det.predict(img) for img in decoded]
+    want_batch = det.predict_batch(images[:8])
+    want_b64 = det.predict(images[4])
+    for r in direct + want_batch + [want_b64]:
+        check("error" not in r, f"predict failed: {r.get('error')}")
+    thread_split(det, decoded[1])
+
+    app = create_app(system, initialize=False)
+    server = serve(app, host="127.0.0.1", port=0, background=True)
+    port = server.server_address[1]
+    print(f"serving on 127.0.0.1:{port}")
+    try:
+        reset_launches()
+        sequential, splits = [], []
+        for i, (name, data) in enumerate(singles):
+            body, ctype = multipart("image", [(name, data)])
+            wall, status, r = http_post(port, "/api/detect", body, ctype)
+            check(status == 200, f"/api/detect {name}: {status} {r.get('error')}")
+            check_same(r, direct[i], f"/api/detect {name}")
+            pred = r["total_inference_time_ms"]
+            splits.append((wall, decode_ms[i], pred, wall - decode_ms[i] - pred,
+                           r["stage_times_ms"]))
+            sequential.append(r)
+        per_request = {k: v / len(singles) for k, v in read_launches().items()}
+        for (wall, dec, pred, rest, stages), (name, data) in zip(splits, singles):
+            print(f"/api/detect {name} ({len(data)} bytes): {wall:.2f} ms wall = decode "
+                  f"{dec:.2f} + predict {pred:.2f} + rest {rest:.2f}; predict stages {stages}")
+        print(f"launches per /api/detect request: {per_request}")
+
+        before = read_launches()
+        body, ctype = multipart("images", [(f"b{i}.png", p) for i, p in enumerate(pngs[:8])])
+        wall, status, r = http_post(port, "/api/detect/batch", body, ctype)
+        batch_launches = {k: v - before[k] for k, v in read_launches().items()}
+        check(status == 200 and r["total_processed"] == 8, f"/api/detect/batch: {status}")
+        for i, (res, w) in enumerate(zip(r["batch_results"], want_batch)):
+            check("error" not in res, f"batch result {i}: {res.get('error')}")
+            check_same(res, w, f"/api/detect/batch frame {i}")
+        print(f"/api/detect/batch of 8: {wall:.2f} ms wall, launches {batch_launches}, detections "
+              f"{[len(x['detections']) for x in r['batch_results']]}")
+
+        body = json.dumps({"image": base64.b64encode(pngs[4]).decode()}).encode()
+        wall, status, r = http_post(port, "/api/detect/base64", body, "application/json")
+        check(status == 200 and r.get("input_format") == "base64", f"/api/detect/base64: {status}")
+        check_same(r, want_b64, "/api/detect/base64")
+        print(f"/api/detect/base64: {wall:.2f} ms wall, predict {r['total_inference_time_ms']:.2f}")
+
+        answers = [None] * len(singles)
+
+        def post(i):
+            body, ctype = multipart("image", [singles[i]])
+            answers[i] = http_post(port, "/api/detect", body, ctype)
+
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(len(singles))]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+            check(not th.is_alive(), "a concurrent request did not finish")
+        wall_all = (time.perf_counter() - t) * 1e3
+        for i, ans in enumerate(answers):
+            check(ans is not None and ans[1] == 200, f"concurrent request {i} failed: {ans}")
+            check_same(ans[2], sequential[i], f"concurrent request {i}")
+        print(f"4 concurrent /api/detect: {wall_all:.2f} ms for all, each "
+              f"{[round(a[0], 2) for a in answers]} ms wall; equal to the sequential answers")
+        launches = read_launches()
+    finally:
+        server.shutdown()
+        server.server_close()
+    print(f"launches in the serving run (4 + 1 batch + 1 base64 + 4 concurrent requests): "
+          f"{launches}")
+    check(all(v == 10 for v in launches.values()), f"kernel launches {launches}, not 10 each")
+
+    reset_launches()
+    r = det.predict(images[0], include_segmentation=False)
+    check("error" not in r, f"predict without segmentation failed: {r.get('error')}")
+    detection_only = read_launches()
+    print(f"predict(include_segmentation=False): {len(r['detections'])} detections, stages "
+          f"{r['stage_times_ms']}, launches {detection_only}")
+    check(detection_only["suppress"] == 1 and detection_only["grow_clean"] == 0
+          and detection_only["clean"] == 0, f"detection-only launches {detection_only}")
+    reset_launches()
+    stream = list(det.predict_stream(iter(images[:4]), micro_batch=4))
+    check([x.get("stream_index") for x in stream] == [0, 1, 2, 3]
+          and not any("error" in x for x in stream), "predict_stream failed")
+    print(f"predict_stream(micro_batch=4): detections {[len(x['detections']) for x in stream]}, "
+          f"launches {read_launches()}")
+    return launches, per_request, detection_only
+
+
 def main() -> int:
     t_all = time.perf_counter()
     try:
@@ -546,11 +792,17 @@ def main() -> int:
             det, launches, conf = phase_main_path(torch, images)
         with Phase("cross-check", 180):
             phase_cross_check(torch, det, images[0], conf)
+        with Phase("serving", 240):
+            serving, per_request, detection_only = phase_serving(torch, images, conf)
     except Exception as e:  # every phase failure ends the run without a result
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)
         return 1
     for row in kernels:
-        row["launches"] = launches[row.pop("counter")]
+        counter = row.pop("counter")
+        row["launches"] = launches[counter]
+        row["launches_serving"] = serving[counter]
+        row["launches_per_http_request"] = per_request[counter]
+        row["launches_per_detection_only_request"] = detection_only[counter]
     print(f"total wall time {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Optional
 
@@ -114,12 +115,15 @@ def build() -> float:
 
 
 _library: Optional[Library] = None
+_library_lock = threading.Lock()
 
 
 def library() -> Library:
-    """The kernel library, built and loaded on first call."""
+    """The kernel library, built and loaded on first call (from any thread)."""
     global _library
     if _library is None:
-        seconds = build()
-        _library = Library(library_path(), seconds)
+        with _library_lock:
+            if _library is None:
+                seconds = build()
+                _library = Library(library_path(), seconds)
     return _library

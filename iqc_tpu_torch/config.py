@@ -1,9 +1,11 @@
-"""Typed configuration of the serving slice.
+"""Typed configuration of the port.
 
-Only the fields that the request path reads. Defaults are the shipped
-serving profile (``config/config.yaml``) at float32: the port reads no YAML,
-so the profile lives here as dataclass defaults, and ``SystemConfig.from_dict``
-applies overrides given as a nested dict.
+The fields that the request path and the serving layer read. Defaults are
+the shipped serving profile (``config/config.yaml``) at float32: the port
+needs no YAML reader, so the profile lives here as dataclass defaults, and
+``SystemConfig.from_dict`` applies overrides given as a nested dict (keys it
+does not read are kept in ``extra``). ``load_config`` reads a JSON file, or a
+YAML file where PyYAML is installed.
 
 Relative weight paths resolve against the repository root (the parent of
 this package), never against the working directory.
@@ -12,12 +14,17 @@ this package), never against the working directory.
 from __future__ import annotations
 
 import dataclasses
+import importlib
+import json
+import logging
 import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 DEFECT_CLASSES = ("crack", "scratch", "dent", "discoloration", "contamination")
 SEVERITY_LEVELS = ("minor", "major", "critical")
+
+logger = logging.getLogger(__name__)
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -119,6 +126,7 @@ class QualityThresholds:
 @dataclass
 class QualityControlConfig:
     defect_classes: List[str] = field(default_factory=lambda: list(DEFECT_CLASSES))
+    severity_levels: List[str] = field(default_factory=lambda: list(SEVERITY_LEVELS))
     thresholds: QualityThresholds = field(default_factory=QualityThresholds)
 
     def validate(self) -> None:
@@ -185,28 +193,207 @@ class QCSpecificConfig:
 
 
 @dataclass
+class SpecLimit:
+    upper: float = 5.0
+    lower: float = 0.0
+    target: float = 0.5
+
+
+@dataclass
+class SPCConfig:
+    window_size: int = 100
+    confidence_level: float = 0.95
+    defect_rate_limits: SpecLimit = field(default_factory=SpecLimit)
+    high_defect_rate_alert: float = 3.0
+
+
+@dataclass
+class ServingConfig:
+    """The HTTP server: address, CORS, rate limit, static API keys, the
+    directory SPC reports are confined to, and TLS."""
+
+    host: str = "0.0.0.0"
+    port: int = 5000
+    debug: bool = False
+    cors_enabled: bool = True
+    rate_limit_enabled: bool = True
+    requests_per_minute: int = 1000
+    metrics_port: int = 9090
+    auth_enabled: bool = False
+    api_keys: Tuple[str, ...] = ()
+    reports_dir: str = "reports"
+    ssl_enabled: bool = False
+    ssl_cert: str = ""
+    ssl_key: str = ""
+
+
+@dataclass
+class StorageConfig:
+    """The SQLite result store (``storage.py``); other database types are
+    rejected when storage is enabled."""
+
+    enabled: bool = False
+    database_type: str = "sqlite"
+    database_path: str = "data/qc_database.sqlite"
+    save_detailed_results: bool = True
+    save_processed_images: bool = False
+    save_failed_images: bool = True
+    image_storage_path: str = "data/images"
+    retention_days: int = 30
+    max_storage_gb: float = 100.0
+    backup_enabled: bool = False
+    backup_path: str = "backups"
+    backup_frequency: str = "daily"  # hourly | daily | weekly
+    backup_retention_days: int = 30
+
+    def validate(self) -> None:
+        if self.enabled and self.database_type != "sqlite":
+            raise ValueError(
+                f"database type {self.database_type!r} not implemented (sqlite only)")
+        if self.retention_days < 1:
+            raise ValueError("retention_days must be >= 1")
+        if self.max_storage_gb <= 0:
+            raise ValueError("max_storage_gb must be positive")
+        if self.backup_frequency not in ("hourly", "daily", "weekly"):
+            raise ValueError(f"unknown backup_frequency {self.backup_frequency!r}")
+
+
+@dataclass
+class AlertThresholds:
+    critical_defects: int = 1     # per-image critical count that alerts
+    major_defects: int = 2        # per-image major count that alerts
+    high_defect_rate: float = 3.0  # defects per image over the SPC window
+    low_confidence: float = 0.6   # per-image mean ensemble confidence floor
+
+
+@dataclass
+class AlertsConfig:
+    """Alert delivery (``serving/alerts.py``): webhooks, SMTP email and an
+    HTTP SMS gateway, with a per-rule cooldown."""
+
+    email_notifications: bool = False
+    sms_notifications: bool = False
+    webhook_notifications: bool = False
+    webhook_url: str = ""
+    webhook_urls: Tuple[str, ...] = ()
+    thresholds: AlertThresholds = field(default_factory=AlertThresholds)
+    cooldown_seconds: float = 60.0
+    timeout_seconds: float = 3.0
+    retries: int = 2
+    email: Dict[str, Any] = field(default_factory=lambda: {
+        "smtp_server": "", "smtp_port": 587, "username": "", "recipients": []})
+    sms: Dict[str, Any] = field(default_factory=lambda: {
+        "gateway_url": "", "api_key": "", "from": "IQC-TPU", "recipients": []})
+
+    def urls(self) -> Tuple[str, ...]:
+        out = tuple(self.webhook_urls)
+        if self.webhook_url and self.webhook_url not in out:
+            out = (self.webhook_url,) + out
+        return out
+
+    def validate(self) -> None:
+        if self.cooldown_seconds < 0 or self.timeout_seconds <= 0:
+            raise ValueError("alert cooldown/timeout must be positive")
+        if self.retries < 0:
+            raise ValueError("alert retries must be >= 0")
+        if self.email_notifications:
+            if not self.email.get("smtp_server"):
+                raise ValueError("email_notifications requires alerts.email.smtp_server")
+            if not self.email.get("recipients"):
+                raise ValueError("email_notifications requires alerts.email.recipients")
+            try:
+                int(self.email.get("smtp_port", 587))
+            except (TypeError, ValueError):
+                raise ValueError("alerts.email.smtp_port must be an integer")
+        if self.sms_notifications:
+            if not self.sms.get("gateway_url"):
+                raise ValueError("sms_notifications requires alerts.sms.gateway_url")
+            if not self.sms.get("recipients"):
+                raise ValueError("sms_notifications requires alerts.sms.recipients")
+
+
+@dataclass
+class ScalingConfig:
+    """The serving worker pool's autoscaler (``serving/scaling.py``)."""
+
+    auto_scale: bool = False
+    min_instances: int = 1
+    max_instances: int = 4
+    cpu_threshold: float = 80.0     # percent; scale up above this
+    memory_threshold: float = 85.0  # percent; scale up above this
+    interval_seconds: float = 10.0  # sampling period
+    # scale down only after this many consecutive samples below half the
+    # thresholds
+    scale_down_samples: int = 3
+
+    def validate(self) -> None:
+        if self.min_instances < 1:
+            raise ValueError("scaling.min_instances must be >= 1")
+        if self.max_instances < self.min_instances:
+            raise ValueError("scaling.max_instances must be >= min_instances")
+        if not (0 < self.cpu_threshold <= 100 and 0 < self.memory_threshold <= 100):
+            raise ValueError("scaling thresholds must be in (0, 100]")
+        if self.interval_seconds <= 0 or self.scale_down_samples < 1:
+            raise ValueError("scaling cadence knobs must be positive")
+
+
+def _shipped_extra() -> Dict[str, Any]:
+    """The shipped profile's blocks that no field reads."""
+    return {
+        "monitoring": {"targets": {
+            "inference_time_ms": 20, "throughput_images_per_minute": 5000,
+            "accuracy_percent": 94.2, "precision_percent": 91.3, "recall_percent": 89.0}},
+        "production": {"scaling": {
+            "auto_scale": False, "min_instances": 1, "max_instances": 4,
+            "cpu_threshold": 80, "memory_threshold": 85}},
+    }
+
+
+@dataclass
 class SystemConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
     processing: ProcessingConfig = field(default_factory=ProcessingConfig)
     quality_control: QualityControlConfig = field(default_factory=QualityControlConfig)
+    spc: SPCConfig = field(default_factory=SPCConfig)
+    api: ServingConfig = field(default_factory=ServingConfig)
     edge: EdgeConfig = field(default_factory=EdgeConfig)
+    alerts: AlertsConfig = field(default_factory=AlertsConfig)
+    storage: StorageConfig = field(default_factory=StorageConfig)
     qc_specific: QCSpecificConfig = field(default_factory=QCSpecificConfig)
+    scaling: ScalingConfig = field(default_factory=ScalingConfig)
+    # blocks that no field reads (integrations, logging, security, ...),
+    # kept as given
+    extra: Dict[str, Any] = field(default_factory=_shipped_extra)
 
     def validate(self) -> "SystemConfig":
         self.model.validate()
         self.processing.validate()
         self.quality_control.validate()
         self.edge.validate()
+        self.alerts.validate()
+        self.storage.validate()
         self.qc_specific.validate()
+        self.scaling.validate()
         return self
 
     @classmethod
     def from_dict(cls, raw: Dict[str, Any]) -> "SystemConfig":
-        """Shipped profile overlaid with ``raw``; unknown keys are ignored."""
+        """Shipped profile overlaid with ``raw``. Nested blocks take both the
+        flat layout of ``to_dict`` and the nested one of ``config.yaml``
+        (``spc.specification_limits``, ``api.rate_limiting``,
+        ``api.authentication``, ``security.ssl``, ``storage.database``,
+        ``production.backup``, ``production.scaling``); unknown keys inside a
+        block are ignored, unknown top-level blocks go to ``extra``."""
         raw = dict(raw or {})
-        model_raw = dict(raw.get("model") or {})
-        proc_raw = dict(raw.get("processing") or {})
-        qc_raw = dict(raw.get("quality_control") or {})
+        model_raw = dict(raw.pop("model", None) or {})
+        proc_raw = dict(raw.pop("processing", None) or {})
+        qc_raw = dict(raw.pop("quality_control", None) or {})
+        spc_raw = dict(raw.pop("spc", None) or {})
+        api_raw = dict(raw.pop("api", None) or {})
+        edge_raw = dict(raw.pop("edge", None) or {})
+        alerts_raw = dict(raw.pop("alerts", None) or {})
+        storage_raw = dict(raw.pop("storage", None) or {})
+        qc_spec_raw = dict(raw.pop("qc_specific", None) or {})
 
         if "resnet_stages" in model_raw:
             model_raw["resnet_stages"] = tuple(model_raw["resnet_stages"])
@@ -220,16 +407,87 @@ class SystemConfig:
         thr_raw = dict(qc_raw.pop("thresholds", None) or {})
         qc = _build(QualityControlConfig, qc_raw)
         qc.thresholds = _build(QualityThresholds, thr_raw)
+
+        rate = dict((spc_raw.pop("specification_limits", None) or {}).get("defect_rate") or {})
+        limits_raw = spc_raw.pop("defect_rate_limits", None)
+        spc = _build(SPCConfig, spc_raw)
+        if isinstance(limits_raw, dict):
+            spc.defect_rate_limits = _build(SpecLimit, limits_raw)
+        if rate:
+            spc.defect_rate_limits = _build(SpecLimit, rate)
+
+        rl = dict(api_raw.pop("rate_limiting", None) or {})
+        auth = dict(api_raw.pop("authentication", None) or {})
+        if "api_keys" in api_raw:
+            api_raw["api_keys"] = tuple(api_raw["api_keys"] or ())
+        api = _build(ServingConfig, api_raw)
+        if rl:
+            api.rate_limit_enabled = bool(rl.get("enabled", api.rate_limit_enabled))
+            api.requests_per_minute = int(rl.get("requests_per_minute", api.requests_per_minute))
+        if auth:
+            api.auth_enabled = bool(auth.get("enabled", api.auth_enabled))
+            keys = auth.get("api_keys")
+            if keys:
+                api.api_keys = tuple(str(k) for k in keys)
+        ssl_raw = dict((raw.get("security") or {}).get("ssl") or {})
+        if ssl_raw:
+            api.ssl_enabled = bool(ssl_raw.get("enabled", api.ssl_enabled))
+            api.ssl_cert = str(ssl_raw.get("cert_file", api.ssl_cert))
+            api.ssl_key = str(ssl_raw.get("key_file", api.ssl_key))
+
+        db_raw = dict(storage_raw.pop("database", None) or {})
+        img_raw = dict(storage_raw.pop("image_storage", None) or {})
+        res_raw = dict(storage_raw.pop("results_storage", None) or {})
+        if "type" in db_raw:
+            storage_raw.setdefault("database_type", db_raw["type"])
+        if "name" in db_raw:
+            storage_raw.setdefault("database_path", db_raw["name"])
+        for src, dst in (("save_processed_images", "save_processed_images"),
+                         ("save_failed_images", "save_failed_images"),
+                         ("storage_path", "image_storage_path"),
+                         ("retention_days", "retention_days"),
+                         ("max_storage_gb", "max_storage_gb")):
+            if src in img_raw:
+                storage_raw.setdefault(dst, img_raw[src])
+        if "save_detailed_results" in res_raw:
+            storage_raw.setdefault("save_detailed_results", res_raw["save_detailed_results"])
+        bk_raw = dict((raw.get("production") or {}).get("backup") or {})
+        for src, dst in (("enabled", "backup_enabled"), ("frequency", "backup_frequency"),
+                         ("retention_days", "backup_retention_days"),
+                         ("backup_path", "backup_path")):
+            if src in bk_raw:
+                storage_raw.setdefault(dst, bk_raw[src])
+
+        alert_thr_raw = dict(alerts_raw.pop("thresholds", None) or {})
+        if "webhook_urls" in alerts_raw:
+            alerts_raw["webhook_urls"] = tuple(alerts_raw["webhook_urls"] or ())
+        alerts = _build(AlertsConfig, alerts_raw)
+        if alert_thr_raw:
+            alerts.thresholds = _build(AlertThresholds, alert_thr_raw)
+
+        # production.scaling (the config.yaml layout) wins over the top-level
+        # "scaling" that to_dict writes, so that a patch of either applies
+        scaling_raw = dict(raw.pop("scaling", None) or {})
+        scaling_raw.update((raw.get("production") or {}).get("scaling") or {})
+
         return cls(
             model=_build(ModelConfig, model_raw),
             processing=processing,
             quality_control=qc,
-            edge=_build(EdgeConfig, dict(raw.get("edge") or {})),
-            qc_specific=_build(QCSpecificConfig, dict(raw.get("qc_specific") or {})),
+            spc=spc,
+            api=api,
+            edge=_build(EdgeConfig, edge_raw),
+            alerts=alerts,
+            storage=_build(StorageConfig, storage_raw),
+            qc_specific=_build(QCSpecificConfig, qc_spec_raw),
+            scaling=_build(ScalingConfig, scaling_raw),
+            extra=raw,
         ).validate()
 
     def to_dict(self) -> Dict[str, Any]:
-        return dataclasses.asdict(self)
+        d = dataclasses.asdict(self)
+        d.update(d.pop("extra"))
+        return d
 
     def update(self, patch: Dict[str, Any]) -> "SystemConfig":
         """Apply a nested dict patch and revalidate."""
@@ -239,3 +497,30 @@ class SystemConfig:
 def _build(cls, raw: Dict[str, Any]):
     names = {f.name for f in dataclasses.fields(cls)}
     return cls(**{k: v for k, v in raw.items() if k in names})
+
+
+def load_config(path: Optional[str] = None) -> SystemConfig:
+    """The configuration in the file at ``path`` over the shipped profile.
+
+    JSON is read with the standard library; ``.yaml`` / ``.yml`` needs PyYAML
+    and raises where it is missing. No path gives the shipped profile; so does
+    a path where no file exists (logged), as the JAX package does. A file that
+    exists but cannot be read or validated raises."""
+    if path is None:
+        return SystemConfig().validate()
+    if not os.path.exists(path):
+        logger.warning("config file %s not found; using the shipped profile", path)
+        return SystemConfig().validate()
+    with open(path) as f:
+        text = f.read()
+    if path.endswith((".yaml", ".yml")):
+        try:
+            yaml = importlib.import_module("yaml")
+        except ImportError as e:
+            raise RuntimeError(
+                f"{path} is YAML, and reading YAML needs PyYAML, which is not "
+                "installed; give the configuration as a JSON file instead") from e
+        raw = yaml.safe_load(text) or {}
+    else:
+        raw = json.loads(text) if text.strip() else {}
+    return SystemConfig.from_dict(raw)

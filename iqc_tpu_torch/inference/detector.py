@@ -2,20 +2,34 @@
 
 validate -> preprocess (to float, resize to the model input) -> the full
 forward (detection, crop classification, fusion, segmentation) -> result
-assembly -> post-processing, on one device. ``predict`` serves one image,
+assembly -> post-processing, on one device. ``predict`` serves one image
+(with ``include_segmentation=False``, the detection-only forward),
 ``predict_batch`` stacks images into one device batch (padded to a power of
-two, at most ``processing.batch_size``).
+two, at most ``processing.batch_size``), ``predict_stream`` serves an
+iterable of frames one by one or in micro-batches.
 
-Images are numpy arrays (HxWx3 or HxW uint8); encoded image bytes are not
-decoded here. A failure inside a request is returned as ``{"error": ...}``.
+Images are numpy arrays: HxWx3 or HxW uint8, or a 1-D buffer of encoded
+JPEG or PNG bytes (``runtime.codec.decode_image``, at full size). A failure
+inside a request is returned as ``{"error": ...}``. Per-request latency goes
+into a ``runtime.LatencyHistogram``.
+
+``predict`` and ``predict_batch`` run on one long-lived thread of the
+detector, whichever thread calls them. PyTorch keeps per-thread state for
+the card (cuDNN's execution plans among it) that a new thread builds again on
+its first forward, at 150-270 ms on an H100; a threaded HTTP server calls
+from a new thread for every request. The card runs one forward at a time
+either way.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import threading
 import time
-from typing import Dict, List, Optional
+import weakref
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -25,9 +39,17 @@ from iqc_tpu_torch.inference.postprocess import PostProcessor
 from iqc_tpu_torch.inference.segmentation import ImageSegmentator
 from iqc_tpu_torch.models.ensemble import EnsemblePredictor
 from iqc_tpu_torch.ops import image as imops
+from iqc_tpu_torch.runtime import LatencyHistogram
+from iqc_tpu_torch.runtime.codec import decode_image
 from iqc_tpu_torch.utils.tracing import StageTimes, stage_timer
 
 logger = logging.getLogger(__name__)
+
+_thread_role = threading.local()
+
+
+def _mark_device_thread() -> None:
+    _thread_role.device = True
 
 
 class QualityControlDetector:
@@ -45,7 +67,17 @@ class QualityControlDetector:
         self.postprocessor = PostProcessor(self.config)
         self._stats_lock = threading.Lock()
         self.performance_stats = {"total_predictions": 0, "total_time": 0.0, "average_time": 0.0}
-        self._latencies_ms: List[float] = []
+        self._latency = LatencyHistogram()
+        self._device_thread = ThreadPoolExecutor(max_workers=1, thread_name_prefix="qc-device",
+                                                 initializer=_mark_device_thread)
+        weakref.finalize(self, self._device_thread.shutdown, wait=False)
+
+    def _on_device_thread(self, fn, *args):
+        """``fn(*args)`` on the detector's long-lived thread (inline when
+        already there)."""
+        if getattr(_thread_role, "device", False):
+            return fn(*args)
+        return self._device_thread.submit(fn, *args).result()
 
     def _preprocess(self, images: torch.Tensor) -> torch.Tensor:
         """[B,H,W,3] uint8 on the device -> float [0,1] at the resize size."""
@@ -56,14 +88,14 @@ class QualityControlDetector:
         return x
 
     @staticmethod
-    def _validate_image(image) -> bool:
-        if image is None or not isinstance(image, np.ndarray):
-            return False
-        return image.ndim in (2, 3) and image.size > 0
-
-    @staticmethod
     def _to_rgb_array(image) -> Optional[np.ndarray]:
-        if not QualityControlDetector._validate_image(image):
+        """RGB uint8 [H,W,3] of a valid input, else None (decodes a 1-D
+        buffer once)."""
+        if image is None or not isinstance(image, np.ndarray):
+            return None
+        if image.ndim == 1:
+            return decode_image(image.tobytes())
+        if image.ndim not in (2, 3) or image.size == 0:
             return None
         if image.ndim == 2:
             return np.repeat(image[..., None], 3, axis=-1)
@@ -72,7 +104,12 @@ class QualityControlDetector:
     def _upload(self, array: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(array)).to(self.device)
 
-    def predict(self, image: np.ndarray) -> Dict:
+    def predict(self, image: np.ndarray, include_segmentation: bool = True) -> Dict:
+        """The result of one image; without segmentation through the
+        detection-only forward."""
+        return self._on_device_thread(self._predict, image, include_segmentation)
+
+    def _predict(self, image: np.ndarray, include_segmentation: bool) -> Dict:
         start = time.perf_counter()
         rgb = self._to_rgb_array(image)
         if rgb is None:
@@ -83,16 +120,20 @@ class QualityControlDetector:
                 processed = self._preprocess(self._upload(rgb)[None])[0]
             shape = tuple(processed.shape)
             segmentation_results: Dict = {}
-            with stage_timer(stages, "ensemble+segmentation", self.device):
-                out, masks, seg_stats = self.ensemble_predictor.run_full_host(processed[None])
-                ensemble_results = self.ensemble_predictor.build_result(out, 0, shape)
-                if ensemble_results.get("detections"):
-                    s = masks.shape[1]
-                    segmentation_results = self.segmentator._assemble_result(
-                        ensemble_results["detections"][:s],
-                        self.segmentator._unpack(masks[0], seg_stats[0]),
-                        out.boxes[0][:s], shape[:2],
-                    )
+            if include_segmentation:
+                with stage_timer(stages, "ensemble+segmentation", self.device):
+                    out, masks, seg_stats = self.ensemble_predictor.run_full_host(processed[None])
+                    ensemble_results = self.ensemble_predictor.build_result(out, 0, shape)
+                    if ensemble_results.get("detections"):
+                        s = masks.shape[1]
+                        segmentation_results = self.segmentator._assemble_result(
+                            ensemble_results["detections"][:s],
+                            self.segmentator._unpack(masks[0], seg_stats[0]),
+                            out.boxes[0][:s], shape[:2],
+                        )
+            else:
+                with stage_timer(stages, "ensemble", self.device):
+                    ensemble_results = self.ensemble_predictor.predict(processed)
             with stage_timer(stages, "postprocess"):
                 final = self.postprocessor.process_results(
                     ensemble_results, segmentation_results, shape)
@@ -116,7 +157,13 @@ class QualityControlDetector:
             logger.exception("prediction failed")
             return {"error": str(e)}
 
-    def predict_batch(self, images: List[np.ndarray]) -> List[Dict]:
+    def predict_batch(self, images: List[np.ndarray],
+                      max_workers: Optional[int] = None) -> List[Dict]:
+        """One device batch for all images; ``max_workers`` is accepted for
+        API compatibility and unused (no thread fan-out)."""
+        return self._on_device_thread(self._predict_batch, images)
+
+    def _predict_batch(self, images: List[np.ndarray]) -> List[Dict]:
         start = time.perf_counter()
         if not images:
             return []
@@ -176,20 +223,56 @@ class QualityControlDetector:
             logger.exception("batch prediction failed")
             return [{"error": str(e), "batch_index": i} for i in range(len(images))]
 
+    def predict_stream(self, image_generator: Iterable[np.ndarray],
+                       callback: Optional[Callable[[Dict], None]] = None,
+                       micro_batch: int = 1):
+        """Results of an iterable of frames, each with ``stream_index`` and
+        ``timestamp``; with ``micro_batch`` > 1 consecutive frames go through
+        ``predict_batch`` together. Returns a generator, or with ``callback``
+        calls it for each result (and once with ``{"error": ...}`` if the
+        stream fails) and returns None."""
+
+        def produce():
+            if micro_batch <= 1:
+                for i, image in enumerate(image_generator):
+                    result = self.predict(image)
+                    result["stream_index"] = i
+                    result["timestamp"] = time.time()
+                    yield result
+                return
+            idx = 0
+            it = iter(image_generator)
+            while True:
+                chunk = list(itertools.islice(it, micro_batch))
+                if not chunk:
+                    return
+                for result in self.predict_batch(chunk):
+                    result["stream_index"] = idx
+                    result["timestamp"] = time.time()
+                    idx += 1
+                    yield result
+
+        if callback is not None:
+            try:
+                for result in produce():
+                    callback(result)
+            except Exception as e:  # the stream's failure boundary, reported to the callback
+                logger.exception("stream prediction failed")
+                callback({"error": str(e)})
+            return None
+        return produce()
+
     def _update_stats(self, elapsed: float, count: int = 1) -> None:
         with self._stats_lock:
             s = self.performance_stats
             s["total_predictions"] += count
             s["total_time"] += elapsed
             s["average_time"] = s["total_time"] / s["total_predictions"]
-            self._latencies_ms.append(elapsed * 1000 / max(count, 1))
-            if len(self._latencies_ms) > 100_000:
-                self._latencies_ms = self._latencies_ms[-50_000:]
+        self._latency.record(elapsed * 1000 / max(count, 1))
 
     def get_performance_stats(self) -> Dict:
         with self._stats_lock:
             stats = dict(self.performance_stats)
-            lat = list(self._latencies_ms)
         if stats["total_predictions"] > 0:
             stats.update({
                 "average_time_ms": stats["average_time"] * 1000,
@@ -197,6 +280,87 @@ class QualityControlDetector:
                     1.0 / stats["average_time"] if stats["average_time"] > 0 else 0.0),
                 "total_time_minutes": stats["total_time"] / 60,
                 "latency_percentiles_ms": {
-                    f"p{p}": float(np.percentile(lat, p)) for p in (50, 95, 99)},
+                    f"p{p}": self._latency.percentile(p) for p in (50, 95, 99)},
             })
         return stats
+
+    def reset_performance_stats(self) -> None:
+        with self._stats_lock:
+            self.performance_stats = {"total_predictions": 0, "total_time": 0.0,
+                                      "average_time": 0.0}
+
+    def get_system_info(self) -> Dict:
+        if self.device.type == "cuda":
+            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        else:
+            devices = [str(self.device)]
+        return {
+            "detector_status": "operational",
+            "components_loaded": {
+                "ensemble_predictor": self.ensemble_predictor is not None,
+                "segmentator": self.segmentator is not None,
+                "postprocessor": self.postprocessor is not None,
+            },
+            "performance_stats": self.get_performance_stats(),
+            "configuration": self.config.to_dict(),
+            "ensemble_info": self.ensemble_predictor.get_model_info(),
+            "devices": devices,
+        }
+
+    def update_config(self, new_config: Dict) -> None:
+        """Validated merge of a nested dict into the configuration. Thresholds,
+        weights and qc_specific overrides reach the predictor at its next
+        request; nothing is rebuilt."""
+        self.config = self.config.update(new_config)
+        self.postprocessor.update_config(self.config)
+        m = self.config.model
+        ens = self.ensemble_predictor
+        with ens.params_lock:
+            ens.confidence_threshold = m.confidence_threshold
+            ens.nms_threshold = m.nms_threshold
+            ens.ensemble_weights = dict(m.ensemble_weights)
+            ens.config = self.config
+
+    def benchmark(self, test_images: List[np.ndarray], iterations: int = 1,
+                  batched: bool = True) -> Dict:
+        """Wall time per image over ``iterations`` passes (one
+        ``predict_batch`` per pass, or one ``predict`` per image), with
+        throughput and success figures."""
+        all_times: List[float] = []
+        all_results: List[Dict] = []
+        for _ in range(iterations):
+            if batched:
+                t0 = time.perf_counter()
+                rs = self.predict_batch(test_images)
+                per = (time.perf_counter() - t0) / max(len(test_images), 1)
+                all_times.extend([per] * len(test_images))
+                all_results.extend(rs)
+            else:
+                for image in test_images:
+                    t0 = time.perf_counter()
+                    all_results.append(self.predict(image))
+                    all_times.append(time.perf_counter() - t0)
+        times_ms = np.asarray(all_times) * 1000
+        ok = [r for r in all_results if "error" not in r]
+        n_det = sum(len(r.get("detections", [])) for r in ok)
+        rate = len(all_times) / max(float(np.sum(all_times)), 1e-9)
+        return {
+            "total_images": len(test_images) * iterations,
+            "iterations": iterations,
+            "timing_statistics": {
+                "mean_ms": float(np.mean(times_ms)),
+                "median_ms": float(np.median(times_ms)),
+                "min_ms": float(np.min(times_ms)),
+                "max_ms": float(np.max(times_ms)),
+                "std_ms": float(np.std(times_ms)),
+                "p95_ms": float(np.percentile(times_ms, 95)),
+                "p99_ms": float(np.percentile(times_ms, 99)),
+            },
+            "throughput": {"images_per_second": rate, "images_per_minute": rate * 60},
+            "accuracy_metrics": {
+                "success_rate": len(ok) / max(len(all_results), 1),
+                "average_detections_per_image": n_det / max(len(ok), 1),
+                "average_confidence": float(
+                    np.mean([r.get("ensemble_confidence", 0.0) for r in ok])) if ok else 0.0,
+            },
+        }

@@ -1,7 +1,8 @@
 """The full request forward and its predictor: detection -> per-crop
 classification -> fusion -> segmentation, then the result schema.
 
-``FullForward`` runs, for a batch of NHWC images:
+``FullForward`` runs, for a batch of NHWC images (``FullForward.ensemble``
+alone is the detection-only forward, ``EnsemblePredictor.run``):
 YOLOv8 -> DFL decode + class-aware merge-NMS (suppression kernel) ->
 crop-and-resize of the top ``max_classified`` survivors -> ResNet-50 over
 those crops (or over a batch-wide pool of the best ``crop_pool`` real
@@ -20,6 +21,7 @@ from __future__ import annotations
 import logging
 import os
 import threading
+import time
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -312,6 +314,9 @@ class EnsemblePredictor:
         }
         self.precision_report = None
         self.pruning_report = None
+        # guards the thresholds and weights that _args reads, so that an
+        # update from another thread is seen whole or not at all
+        self.params_lock = threading.Lock()
         self._counter_lock = threading.Lock()
         self.crop_classified_total = 0
         self.mock_tail_total = 0
@@ -343,16 +348,35 @@ class EnsemblePredictor:
 
     def _args(self):
         """(conf_t, iou_t, w_yolo, w_resnet, sev_rules) for the forward, with
-        the qc_specific overrides applied."""
-        qc = self.config.qc_specific
-        conf_vec = qc.conf_vector(self.class_names, self.confidence_threshold)
+        the qc_specific overrides applied. Read from the predictor on every
+        call, so a change takes effect at the next request with no rebuild."""
+        with self.params_lock:
+            qc = self.config.qc_specific
+            conf, nms, weights = (self.confidence_threshold, self.nms_threshold,
+                                  self.ensemble_weights)
+        conf_vec = qc.conf_vector(self.class_names, conf)
         conf_t = (torch.tensor(conf_vec, dtype=torch.float32, device=self.device)
-                  if conf_vec else self.confidence_threshold)
-        nms_t = qc.nms_threshold if qc.nms_threshold is not None else self.nms_threshold
+                  if conf_vec else conf)
+        nms_t = qc.nms_threshold if qc.nms_threshold is not None else nms
         sev = qc.severity_array()
         sev_t = torch.tensor(sev, dtype=torch.float32, device=self.device) if sev else None
-        return (conf_t, float(nms_t), float(self.ensemble_weights["yolo"]),
-                float(self.ensemble_weights["resnet"]), sev_t)
+        return (conf_t, float(nms_t), float(weights["yolo"]), float(weights["resnet"]), sev_t)
+
+    def run(self, images) -> EnsembleOutputs:
+        """The detection-only forward (detection, crop classification,
+        fusion) on a [B,H,W,3] batch (tensor or numpy); tensors out, on the
+        device."""
+        x = torch.as_tensor(images).to(self.device)
+        fwd = self._forward_full
+        with torch.inference_mode():
+            return fwd.ensemble(fwd._input(x), *self._args())
+
+    def run_host(self, images) -> EnsembleOutputs:
+        """``run`` packed into two tensors and fetched to the host in one go;
+        numpy out."""
+        with torch.inference_mode():
+            det, img = pack_outputs(self.run(images))
+            return unpack_outputs(det.cpu().numpy(), img.cpu().numpy())
 
     def run_full_host(self, images):
         """The whole forward on a [B,H,W,3] batch (tensor or numpy). Returns
@@ -425,6 +449,33 @@ class EnsemblePredictor:
             "quality_assessment": assess_overall_quality(n_minor, n_major, n_crit),
             "ensemble_confidence": float(o.image_confidence),
         }
+
+    def predict(self, image) -> Dict:
+        """Detection-only result for one [H,W,3] image (numpy or tensor)."""
+        t0 = time.perf_counter()
+        out = self.run_host(torch.as_tensor(image)[None])
+        result = self.build_result(out, 0, tuple(image.shape))
+        result["total_inference_time_ms"] = (time.perf_counter() - t0) * 1000
+        return result
+
+    def batch_predict(self, images: List[np.ndarray]) -> List[Dict]:
+        """Detection-only results for equally sized images, as one batch."""
+        t0 = time.perf_counter()
+        out = self.run_host(np.stack(images))
+        dt = (time.perf_counter() - t0) * 1000
+        results = []
+        for i, image in enumerate(images):
+            r = self.build_result(out, i, image.shape)
+            r["batch_index"] = i
+            r["total_inference_time_ms"] = dt / len(images)
+            results.append(r)
+        return results
+
+    def update_ensemble_weights(self, yolo_weight: float, resnet_weight: float) -> None:
+        """Set the fusion weights, renormalised to sum to 1."""
+        total = yolo_weight + resnet_weight
+        with self.params_lock:
+            self.ensemble_weights = {"yolo": yolo_weight / total, "resnet": resnet_weight / total}
 
     @staticmethod
     def _summary(detections: List[Dict]) -> Dict:

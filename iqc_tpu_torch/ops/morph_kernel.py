@@ -4,10 +4,13 @@ wrappers.
 ``grow_clean`` is the port of ``iqc_tpu/ops/pallas_morph.py::_grow_clean_kernel``
 and ``clean`` of ``_clean_kernel``; both launch ``csrc/morph.cu``. For a CPU
 tensor they run the plain versions; for a CUDA tensor they launch the kernel
-(or raise), and add one to ``LAUNCHES`` per launch.
+(or raise), and add one to ``LAUNCHES`` per launch (under ``LAUNCHES_LOCK``,
+as requests run from several threads).
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -15,6 +18,7 @@ from iqc_tpu_torch import build
 from iqc_tpu_torch.ops import image as imops
 
 LAUNCHES = {"grow_clean": 0, "clean": 0}
+LAUNCHES_LOCK = threading.Lock()
 MAX_SIDE = 256  # csrc/morph.cu holds a ROI's rows bit-packed in registers
 
 
@@ -68,7 +72,8 @@ def _launch(name: str, inputs, *ints: int) -> torch.Tensor:
         return out
     build.launch(build.library().fns[name], out.device, *(x.data_ptr() for x in inputs),
                  out.data_ptr(), out.shape[0], out.shape[1], *ints)
-    LAUNCHES[name[4:]] += 1
+    with LAUNCHES_LOCK:
+        LAUNCHES[name[4:]] += 1
     return out
 
 

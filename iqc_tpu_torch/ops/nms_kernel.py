@@ -4,10 +4,13 @@
 ``iqc_tpu/ops/pallas_nms.py::_suppress_kernel``; its CUDA source is
 ``csrc/suppress.cu``. For a CPU tensor it runs ``suppress_plain``; for a
 CUDA tensor it launches the kernel (or raises), and adds one to
-``LAUNCHES["suppress"]`` per launch.
+``LAUNCHES["suppress"]`` per launch (under ``LAUNCHES_LOCK``, as requests
+run from several threads).
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -15,6 +18,7 @@ from iqc_tpu_torch import build
 from iqc_tpu_torch.ops.boxes import iou_matrix
 
 LAUNCHES = {"suppress": 0}
+LAUNCHES_LOCK = threading.Lock()
 MAX_BOXES = 512  # csrc/suppress.cu keeps an image's K boxes in shared memory
 
 
@@ -53,5 +57,6 @@ def suppress(boxes: torch.Tensor, iou_threshold: float, iterations: int = 16) ->
         return keep
     build.launch(build.library().fns["iqc_suppress"], x.device, x.data_ptr(), keep.data_ptr(),
                  b, k, float(iou_threshold), int(iterations))
-    LAUNCHES["suppress"] += 1
+    with LAUNCHES_LOCK:
+        LAUNCHES["suppress"] += 1
     return keep

@@ -248,9 +248,13 @@ def test_predict_batch_end_to_end(detectors):
 
 
 def test_predict_grayscale_and_invalid(detectors):
+    """The stats count this test's own two predictions (grey and RGB), from
+    a reset, whichever tests ran before it on the same detector."""
     jd, td = detectors
+    td.reset_performance_stats()
     gray = _images(3, 1)[0, ..., 0]
     _compare_results(_strip(td.predict(gray)), _strip(jd.predict(gray)))
+    assert "error" not in td.predict(_images(3, 1)[0])
     assert td.predict(None) == jd.predict(None) == {"error": "Invalid image input"}
     assert td.predict(np.zeros((0, 0, 3), np.uint8)) == {"error": "Invalid image input"}
     stats = td.get_performance_stats()
