@@ -13,19 +13,29 @@ Phases, each under a deadline and printed with its wall time:
      plain version's time and its bound; then inputs that end the kernels'
      loops early or never;
   4. main path: the shipped serving profile (YOLOv8n 640^2, ResNet-50 on
-     128^2 crops, crop pool 128, seg pool 64, float32) from the shipped
-     checkpoints; 4 x predict and 1 x predict_batch of 8 on seeded synthetic
-     640^2 defect images, with every kernel's launch counter read around it;
-  5. cross-check: one request again on the CPU, compared with the card's;
-  6. serving: the port's HTTP server (QualityControlSystem on the card, the
-     shipped profile) on 127.0.0.1 in a thread; 4 frames one by one to
+     128^2 crops, crop pool 128, seg pool 64) at its shipped precision, int8
+     with both streaming walks and bfloat16 compute, from the shipped
+     checkpoints, its activation scales calibrated on the card at start-up;
+     4 x predict and 1 x predict_batch of 8 on seeded synthetic 640^2 defect
+     images, with every kernel's launch counter read around it;
+  5. int8 cross-check: one request again on the CPU with the card's quantized
+     networks and scales carried across, compared with the card's;
+  6. fp32: the same profile in float32 (4 x predict, 1 x predict_batch of 8,
+     launch counters read around it) and one request cross-checked against
+     the CPU; then one predict at edge.precision bf16;
+  7. serving: the port's HTTP server (QualityControlSystem on the card, the
+     shipped int8 profile) on 127.0.0.1 in a thread; 4 frames one by one to
      /api/detect (the first a committed JPEG of frame 0 where libjpeg is
      present, the rest PNG), a batch of 8 to /api/detect/batch, one frame to
      /api/detect/base64 and the 4 frames again concurrently; every answer
      held equal to predict of the same decoded frame, the concurrent ones to
      the sequential ones; then predict(include_segmentation=False) and
      predict_stream(micro_batch=4) once each, with the kernels' launch
-     counters read around each.
+     counters read around each;
+  8. networks: YOLOv8n at [1|8,640,640,3] and ResNet-50 at [32|128|1,128,128,3]
+     in float32 (cuDNN, TF32 off), bfloat16 (cuDNN) and int8 (im2col and
+     torch._int_mm), ms by CUDA events, and the kernels each int8 forward
+     launches (torch.profiler).
 Then one JSON line of kernel measurements, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits nonzero without that line.
 Needs one CUDA device; exits nonzero at once without one.
@@ -49,6 +59,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # operation is counted at the float32 rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# dense tensor-core peaks of the same card: bfloat16 FLOP/s and int8 OP/s
+PEAK_OPS_PER_S = {"fp32": FP32_OPS_PER_S, "bf16": 989e12, "int8": 1979e12}
 
 CONF_FALLBACKS = (0.7, 0.5, 0.3)
 MASK_AGREEMENT = 0.999
@@ -439,20 +451,70 @@ def phase_kernels(torch):
     return list(rows.values())
 
 
-def phase_main_path(torch, images):
+STREAM_MODE = "true-int8 MXU, int8-resident activations (streaming v2)"
+FP32 = {"edge": {"precision": "fp32"}, "model": {"compute_dtype": "float32"}}
+BF16 = {"edge": {"precision": "bf16"}, "model": {"compute_dtype": "bfloat16"}}
+
+
+def build_detector(torch, overrides=None, label="int8"):
+    """QualityControlDetector on the card at the shipped profile with
+    ``overrides``; checks the weights' source, the device and, at int8, the
+    precision report."""
+    from iqc_tpu_torch.config import SystemConfig
     from iqc_tpu_torch.inference.detector import QualityControlDetector
 
     t0 = time.perf_counter()
-    det = QualityControlDetector(device="cuda")
-    src = det.ensemble_predictor.weights_source
-    print(f"detector built in {time.perf_counter() - t0:.2f} s, weights {src}")
+    config = SystemConfig.from_dict(overrides) if overrides else None
+    det = QualityControlDetector(config=config, device="cuda")
+    torch.cuda.synchronize()
+    ens = det.ensemble_predictor
+    src = ens.weights_source
+    print(f"{label} detector built in {time.perf_counter() - t0:.2f} s, weights {src}")
     check(src == {"yolo": "checkpoint", "resnet": "checkpoint"}, f"weights not from checkpoints: {src}")
+    check(det.device.type == "cuda" and ens.device.type == "cuda",
+          f"the detector runs on {det.device}, not the card")
     m = det.config.model
     print(f"profile: input {det.config.processing.input_size}, YOLOv8 width {m.width_mult} "
           f"depth {m.depth_mult}, ResNet stages {m.resnet_stages} on {m.classifier_input}^2 crops, "
           f"max_detections {m.max_detections}, max_classified {m.max_classified}, crop pool "
           f"{m.max_classified_pool}, seg pool {m.max_segmented_pool}, roi {m.seg_roi_size}, "
-          f"{m.compute_dtype}")
+          f"compute {m.compute_dtype}, precision {det.config.edge.precision}")
+    report = ens.precision_report
+    if det.config.edge.precision == "int8":
+        check(report is not None and report["precision"] == "int8",
+              f"int8 profile without an int8 report: {report}")
+        check(report["yolo"] == STREAM_MODE and report["resnet"] == STREAM_MODE,
+              f"not both streaming walks: {report}")
+        check(ens.calibration_seconds is not None and ens.calibration_seconds > 0,
+              "no calibration ran")
+        print(f"calibration (quantize + calibrate both networks on the card): "
+              f"{ens.calibration_seconds:.3f} s; precision report {report}")
+    else:
+        check(report is None, f"{label}: unexpected precision report {report}")
+    return det
+
+
+def request_profile(torch, det, image):
+    """One predict under torch.profiler: (wall ms, device kernels, their
+    summed device ms). The device is idle for the rest of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        r = det.predict(image)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    check("error" not in r, f"profiled predict failed: {r.get('error')}")
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return wall, len(kernels), busy
+
+
+def phase_main_path(torch, images, det):
+    m = det.config.model
+    label = det.config.edge.precision
 
     reset_launches()
     results = []
@@ -482,12 +544,15 @@ def phase_main_path(torch, images):
             if n_regions(r):
                 break
     launches = read_launches()
-    print(f"launches on the main path: {launches}")
+    print(f"launches on the {label} main path: {launches}")
     errors = [r["error"] for r in results if "error" in r]
     check(not errors, f"requests failed: {errors[:3]}")
     check(any(n_regions(r) for r in results), "no request produced detections with regions")
     check(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
     print(f"performance: {det.get_performance_stats()}")
+    wall, n, busy = request_profile(torch, det, images[1])
+    print(f"{label} predict under torch.profiler: {wall:.2f} ms wall, {n} kernels, "
+          f"{busy:.3f} ms of device time, device idle {100 * (1 - busy / wall):.1f}% of it")
     return det, launches, conf_used
 
 
@@ -529,6 +594,71 @@ def phase_cross_check(torch, det_gpu, image, conf):
     print(f"card vs CPU at confidence {conf}: {int(v.sum())} detections, boxes within "
           f"{box_err:.2e} px, masks agree on {agree * 100:.4f}% of pixels, grade "
           f"{qa_g['quality_grade']} on both")
+
+
+def phase_cross_check_int8(torch, det_gpu, image, conf):
+    """One request on the card and on the CPU, the CPU serving the card's
+    quantized networks and scales (no calibration there)."""
+    import numpy as np
+
+    from iqc_tpu_torch.inference.detector import QualityControlDetector
+
+    ens = det_gpu.ensemble_predictor
+    state = {"yolo": ens.yolo_vars, "resnet": ens.resnet_vars}
+    det_cpu = QualityControlDetector(config=det_gpu.config, device="cpu", int8_state=state)
+    check(det_cpu.ensemble_predictor.precision_report == ens.precision_report,
+          "the CPU detector reports another precision")
+    outs = []
+    for det in (det_gpu, det_cpu):
+        det.ensemble_predictor.confidence_threshold = conf
+        x = det._preprocess(det._upload(image)[None])
+        outs.append(det.ensemble_predictor.run_full_host(x))
+    (g, gm, gs), (c, cm, cs) = outs
+    vg, vc = g.valid, c.valid
+    print(f"int8 card vs CPU at confidence {conf}: {int(vg.sum())} detections on the card, "
+          f"{int(vc.sum())} on the CPU")
+    check(np.array_equal(vg, vc), "valid slots differ between card and CPU")
+    v = vc
+    box_err = float(np.abs(g.boxes[v] - c.boxes[v]).max()) if v.any() else 0.0
+    score_err = float(np.abs(g.yolo_scores[v] - c.yolo_scores[v]).max()) if v.any() else 0.0
+    conf_err = float(np.abs(g.crop_conf[v] - c.crop_conf[v]).max()) if v.any() else 0.0
+    ens_err = float(np.abs(g.ensemble_conf[v] - c.ensemble_conf[v]).max()) if v.any() else 0.0
+    prob_err = float(np.abs(g.global_probs - c.global_probs).max())
+    agree = float(np.mean(gm == cm))
+    print(f"int8 card vs CPU: boxes within {box_err:.3e} px, detector scores within "
+          f"{score_err:.3e}, crop confidences within {conf_err:.3e}, ensemble confidences "
+          f"within {ens_err:.3e}, global probabilities within {prob_err:.3e}, masks agree on "
+          f"{agree * 100:.4f}% of pixels")
+    for f in ("classes", "yolo_severity", "crop_class", "crop_severity", "final_severity"):
+        check(np.array_equal(getattr(g, f)[v], getattr(c, f)[v]), f"int8 {f} differs")
+    check(box_err <= 1.0, f"int8 boxes differ by {box_err} px")
+    check(score_err <= 1e-3 and conf_err <= 1e-2 and ens_err <= 1e-2 and prob_err <= 1e-2,
+          "int8 confidences differ beyond 1e-3 (scores) / 1e-2 (classifier)")
+    check(agree >= 0.99, f"int8 masks agree on {agree:.6f} of pixels")
+    rg, rc = det_gpu.predict(image), det_cpu.predict(image)
+    for r in (rg, rc):
+        check("error" not in r, f"request failed: {r.get('error')}")
+    qa_g, qa_c = rg["quality_assessment"], rc["quality_assessment"]
+    check(qa_g["quality_grade"] == qa_c["quality_grade"]
+          and qa_g["pass_fail_status"] == qa_c["pass_fail_status"], "int8 grades differ")
+    print(f"int8 grade {qa_g['quality_grade']} / {qa_g['pass_fail_status']} on both")
+
+
+def phase_fp32_bf16(torch, images, conf):
+    """The float32 profile: its main path, launches and the card-vs-CPU
+    cross-check; then one predict at edge.precision bf16."""
+    det = build_detector(torch, FP32, "fp32")
+    _, launches, conf32 = phase_main_path(torch, images, det)
+    phase_cross_check(torch, det, images[0], conf32)
+    det16 = build_detector(torch, BF16, "bf16")
+    check(det16.ensemble_predictor.yolo.compute_dtype == torch.bfloat16, "bf16 YOLO is not bf16")
+    det16.ensemble_predictor.confidence_threshold = conf
+    r = det16.predict(images[0])
+    check("error" not in r, f"bf16 predict failed: {r.get('error')}")
+    r = det16.predict(images[1])
+    print(f"bf16 predict: {r['total_inference_time_ms']:.1f} ms (second call), "
+          f"{len(r['detections'])} detections, grade {r['quality_assessment']['quality_grade']}")
+    return det, det16, launches
 
 
 def png_bytes(img) -> bytes:
@@ -652,6 +782,10 @@ def phase_serving(torch, images, conf):
     check(system.initialize_models(), "initialize_models failed: the system is in demo mode")
     det = system.detector
     check(det.device.type == "cuda", f"the detector runs on {det.device}, not the card")
+    report = det.ensemble_predictor.precision_report
+    check(det.config.edge.precision == "int8" and report is not None
+          and report["yolo"] == report["resnet"] == STREAM_MODE,
+          f"the server does not serve the shipped int8 profile: {report}")
     det.update_config({"model": {"confidence_threshold": conf}})
     print(f"QualityControlSystem on {det.device} in {time.perf_counter() - t0:.2f} s, "
           f"confidence threshold {conf}")
@@ -765,6 +899,82 @@ def phase_serving(torch, images, conf):
     return launches, per_request, detection_only
 
 
+# (network, input shape): one request's YOLO, a batch of 8's; the crop pool
+# of one request (dense: 32 >= 1 x 32 crops), the batch pool and the global
+# branch of one request
+NETWORK_SHAPES = (("yolo", (1, 640, 640, 3)), ("yolo", (8, 640, 640, 3)),
+                  ("resnet", (32, 128, 128, 3)), ("resnet", (128, 128, 128, 3)),
+                  ("resnet", (1, 128, 128, 3)))
+
+
+def device_events_per_call(torch, fn):
+    """(kernels, all device events) one call of fn puts on the card, from
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+    return len(kernels), len(events)
+
+
+def forward_flops(torch, module, x):
+    """Floating-point operations of one forward of a float module (2 per
+    multiply-add of its convolutions and matrix products), counted by
+    torch.utils.flop_counter."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        module(x)
+    return counter.get_total_flops()
+
+
+def phase_networks(torch, det8, det32, det16):
+    """Each network alone in float32 (cuDNN, TF32 off), bfloat16 (cuDNN) and
+    int8 (im2col + torch._int_mm): eager ms by CUDA events over 20 calls
+    after 3 warm-up calls, device ms by replaying a CUDA graph of 3 calls
+    (the median of 5 replays, over 3), the device kernels of one call, and
+    the operations bound at each precision's peak rate (the float32
+    forward's operation count, which the other two compute as well)."""
+    dev = torch.device("cuda")
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on")
+    nets = {"fp32": det32.ensemble_predictor, "bf16": det16.ensemble_predictor,
+            "int8": det8.ensemble_predictor}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    with torch.inference_mode():
+        for net, shape in NETWORK_SHAPES:
+            if net == "yolo":
+                x = torch.rand(shape, device=dev, generator=gen)
+            else:
+                x = torch.randn(shape, device=dev, generator=gen)
+            flops = forward_flops(torch, getattr(nets["fp32"], net), x)
+            row = {"network": net, "shape": list(shape), "gflop": flops / 1e9}
+            for prec, ens in nets.items():
+                module = getattr(ens, net)
+                fn = lambda module=module: module(x)
+                out = fn()
+                outs = out if isinstance(out, tuple) else (out,)
+                check(all(bool(torch.isfinite(o.float()).all()) for o in outs),
+                      f"{net} {prec} {shape}: non-finite output")
+                row[f"{prec}_ms"] = cuda_time_ms(fn, warmup=3, iters=20)
+                row[f"{prec}_device_ms"] = graph_ms(torch, fn, iters=3, replays=5)
+                row[f"{prec}_bound_ms"] = flops / PEAK_OPS_PER_S[prec] * 1e3
+                row[f"{prec}_kernels"], row[f"{prec}_device_events"] = \
+                    device_events_per_call(torch, fn)
+            print(f"{net} {shape}, {row['gflop']:.2f} GFLOP: " + "; ".join(
+                f"{p} {row[p + '_ms']:.3f} ms eager, {row[p + '_device_ms']:.3f} ms device, "
+                f"bound {row[p + '_bound_ms']:.4f} ms, {row[p + '_kernels']} kernels"
+                for p in nets))
+            rows.append(row)
+    return rows
+
+
 def main() -> int:
     t_all = time.perf_counter()
     try:
@@ -788,21 +998,28 @@ def main() -> int:
         with Phase("kernels", 180):
             kernels = phase_kernels(torch)
         images = [defect_image(s) for s in range(8)]
-        with Phase("main path", 240):
-            det, launches, conf = phase_main_path(torch, images)
-        with Phase("cross-check", 180):
-            phase_cross_check(torch, det, images[0], conf)
-        with Phase("serving", 240):
+        with Phase("main path", 300):
+            det = build_detector(torch)
+            det, launches, conf = phase_main_path(torch, images, det)
+        with Phase("int8 cross-check", 240):
+            phase_cross_check_int8(torch, det, images[0], conf)
+        with Phase("fp32 and bf16", 300):
+            det32, det16, launches32 = phase_fp32_bf16(torch, images, conf)
+        with Phase("serving", 300):
             serving, per_request, detection_only = phase_serving(torch, images, conf)
+        with Phase("networks", 300):
+            networks = phase_networks(torch, det, det32, det16)
     except Exception as e:  # every phase failure ends the run without a result
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)
         return 1
     for row in kernels:
         counter = row.pop("counter")
         row["launches"] = launches[counter]
+        row["launches_fp32_main_path"] = launches32[counter]
         row["launches_serving"] = serving[counter]
         row["launches_per_http_request"] = per_request[counter]
         row["launches_per_detection_only_request"] = detection_only[counter]
+    print(json.dumps({"networks": networks}))
     print(f"total wall time {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

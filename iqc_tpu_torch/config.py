@@ -1,8 +1,9 @@
 """Typed configuration of the port.
 
 The fields that the request path and the serving layer read. Defaults are
-the shipped serving profile (``config/config.yaml``) at float32: the port
-needs no YAML reader, so the profile lives here as dataclass defaults, and
+the shipped serving profile (``config/config.yaml``): bfloat16 compute and
+int8 serving with both streaming walks. The port needs no YAML reader, so
+the profile lives here as dataclass defaults, and
 ``SystemConfig.from_dict`` applies overrides given as a nested dict (keys it
 does not read are kept in ``extra``). ``load_config`` reads a JSON file, or a
 YAML file where PyYAML is installed.
@@ -56,7 +57,7 @@ class ModelConfig:
     ensemble_weights: Dict[str, float] = field(
         default_factory=lambda: {"yolo": 0.6, "resnet": 0.4}
     )
-    compute_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"  # float32 | bfloat16
     max_detections: int = 300
     max_classified: int = 32
     max_classified_pool: int = 128
@@ -71,9 +72,8 @@ class ModelConfig:
     yolo_stem: str = "conv"
 
     def validate(self) -> None:
-        if self.compute_dtype != "float32":
-            raise ValueError(
-                f"compute_dtype {self.compute_dtype!r} is not ported; float32 only")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
         if self.yolo_stem not in ("conv", "s2d"):
             raise ValueError(f"unknown yolo_stem {self.yolo_stem!r}")
         if not 0.0 <= self.confidence_threshold <= 1.0:
@@ -136,11 +136,34 @@ class QualityControlConfig:
 
 @dataclass
 class EdgeConfig:
-    precision: str = "fp32"
+    """Serving precision. ``int8``: int8 convolutions with statically
+    calibrated activation scales for both networks, walked with int8 codes
+    between convolutions (``yolo_int8_stream``, ``resnet_int8_stream``);
+    the environment variables ``IQC_YOLO_INT8_STREAM`` and
+    ``IQC_RESNET_INT8_STREAM`` (``1``/``0``) override the two walk flags.
+    ``fp32`` and ``bf16`` serve the float networks in ``model.compute_dtype``."""
+
+    precision: str = "int8"  # fp32 | bf16 | int8
+    yolo_int8: bool = True
+    yolo_int8_stream: bool = True
+    resnet_int8_stream: bool = True
+    max_batch_size: int = 32
+    sparsity: float = 0.0
+    structured_pruning: bool = False
 
     def validate(self) -> None:
-        if self.precision != "fp32":
-            raise ValueError(f"precision {self.precision!r} is not ported; fp32 only")
+        if self.precision not in ("fp32", "bf16", "int8"):
+            raise ValueError(f"unknown precision {self.precision!r}")
+        if not 0.0 <= self.sparsity < 1.0:
+            raise ValueError(f"sparsity out of range: {self.sparsity}")
+        if self.sparsity > 0.0:
+            raise ValueError("magnitude pruning (edge.sparsity > 0) is not ported")
+        if self.precision == "int8" and not self.yolo_int8:
+            raise ValueError("weight-only int8 storage for YOLO (edge.yolo_int8: false) "
+                             "is not ported")
+        if self.precision == "int8" and not self.yolo_int8_stream:
+            raise ValueError("the v1 int8 YOLO walk (edge.yolo_int8_stream: false) "
+                             "is not ported")
 
 
 @dataclass

@@ -55,14 +55,17 @@ def _mark_device_thread() -> None:
 class QualityControlDetector:
     def __init__(self, yolo_weights: Optional[str] = None,
                  resnet_weights: Optional[str] = None,
-                 config: Optional[SystemConfig] = None, device="cuda"):
+                 config: Optional[SystemConfig] = None, device="cuda",
+                 int8_state: Optional[Dict] = None):
+        """``int8_state``: quantized networks to serve instead of calibrating
+        anew (``EnsemblePredictor``)."""
         if isinstance(config, dict):
             config = SystemConfig.from_dict(config)
         self.config = config or SystemConfig()
         self.device = torch.device(device)
         self.ensemble_predictor = EnsemblePredictor(
             yolo_weights=yolo_weights, resnet_weights=resnet_weights,
-            config=self.config, device=self.device)
+            config=self.config, device=self.device, int8_state=int8_state)
         self.segmentator = ImageSegmentator(self.config)
         self.postprocessor = PostProcessor(self.config)
         self._stats_lock = threading.Lock()

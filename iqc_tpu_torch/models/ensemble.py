@@ -14,6 +14,14 @@ at 1, the detector's class and severity).
 
 Outputs are packed into two dense tensors (``pack_outputs``) plus the masks
 and segmentation statistics, and fetched to the host in one go.
+
+Serving precision (``edge.precision``): ``int8`` replaces both networks by
+their int8 forwards (``Int8YOLO``: the int8-resident walk of
+``yolo_int8_stream``; ``Int8ResNet``: ``resnet_int8_stream`` or the v1
+``resnet_int8`` walk), quantized from the float weights with activation
+scales calibrated at construction, on the predictor's device, from
+procedurally rendered defect frames and crops. ``fp32`` and ``bf16`` serve
+the float networks in ``model.compute_dtype``.
 """
 
 from __future__ import annotations
@@ -29,6 +37,9 @@ import torch
 from torch import nn
 
 from iqc_tpu_torch.config import SystemConfig, resolve_path
+from iqc_tpu_torch.data.resize import resize_bicubic
+from iqc_tpu_torch.data.yolo_dataset import SyntheticDefectDataset
+from iqc_tpu_torch.models import resnet_int8, resnet_int8_stream, yolo_int8_stream
 from iqc_tpu_torch.models.layers import init_random
 from iqc_tpu_torch.models.resnet import ResNet50, classifier_severity, preprocess_for_classifier
 from iqc_tpu_torch.models.yolo import STRIDES, YOLOv8, detection_severity, feature_shapes
@@ -36,7 +47,7 @@ from iqc_tpu_torch.ops import image as imops
 from iqc_tpu_torch.ops.boxes import box_area
 from iqc_tpu_torch.ops.nms import Detections, decode_and_nms, make_anchors
 from iqc_tpu_torch.ops.segmentation import CLASS_TO_METHOD, segment_rois, table_lookup
-from iqc_tpu_torch.weights import load_into, read_checkpoint
+from iqc_tpu_torch.weights import load_into, read_checkpoint, to_flax
 
 logger = logging.getLogger(__name__)
 
@@ -63,6 +74,41 @@ class EnsembleOutputs(NamedTuple):
     image_confidence: object  # [B] per-image ensemble confidence
 
 
+class Int8YOLO(nn.Module):
+    """The int8-resident YOLOv8 (``yolo_int8_stream``) as the full forward's
+    detector: NHWC float images -> float32 (dist, cls) logits."""
+
+    def __init__(self, q: Dict, scales, reg_max: int, num_classes: int, device):
+        super().__init__()
+        self.reg_max, self.num_classes = reg_max, num_classes
+        self.q = yolo_int8_stream.device_tree(q, device)
+        self.scales = torch.as_tensor(np.array(scales, np.float32), device=device)
+
+    def forward(self, x: torch.Tensor):
+        return yolo_int8_stream.apply(self.q, x, self.scales, self.reg_max, self.num_classes)
+
+
+class Int8ResNet(nn.Module):
+    """The int8 ResNet-50 as the full forward's classifier: the streaming
+    walk, or the v1 walk (``stream=False``), over the same tree and scales."""
+
+    def __init__(self, q: Dict, scales, stage_sizes, stream: bool, device):
+        super().__init__()
+        self.stage_sizes, self.stream = tuple(stage_sizes), stream
+        self.q = resnet_int8.device_tree(q, device)
+        self.scales = torch.as_tensor(np.array(scales, np.float32), device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.stream:
+            return resnet_int8_stream.apply(self.q, x, self.scales, self.stage_sizes)
+        return resnet_int8.apply(self.q, x, self.stage_sizes, act_scales=self.scales)
+
+
+def _env_flag(name: str, default: bool) -> bool:
+    env = os.environ.get(name)
+    return default if env is None else env not in ("0", "false", "")
+
+
 def _top_indices(key: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k largest entries of a 1-D key; ties keep the lower index first."""
     return torch.sort(key, descending=True, stable=True).indices[:k]
@@ -71,12 +117,14 @@ def _top_indices(key: torch.Tensor, k: int) -> torch.Tensor:
 class FullForward(nn.Module):
     """The whole request on a batch, as one module."""
 
-    def __init__(self, yolo: YOLOv8, resnet: ResNet50, input_size, max_detections: int,
+    def __init__(self, yolo: nn.Module, resnet: nn.Module, input_size, max_detections: int,
                  max_classified: int, classifier_input: int, max_segmented: int,
-                 roi_size: int, crop_pool: int, seg_pool: int):
+                 roi_size: int, crop_pool: int, seg_pool: int,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.yolo = yolo
         self.resnet = resnet
+        self.compute_dtype = compute_dtype
         self.input_size = tuple(input_size)
         self.max_detections = max_detections
         self.max_classified = max_classified
@@ -118,7 +166,7 @@ class FullForward(nn.Module):
         global_probs = torch.softmax(
             self.resnet(preprocess_for_classifier(x, ci)).to(torch.float32), dim=-1)
 
-        crops = imops.crop_and_resize(x, det.boxes[:, :kc], (ci, ci))
+        crops = imops.crop_and_resize(x, det.boxes[:, :kc], (ci, ci), self.compute_dtype)
         crops_flat = imops.normalize_imagenet(crops.reshape(b * kc, ci, ci, 3))
         pool = self.crop_pool
         if pool and pool < b * kc:
@@ -283,7 +331,11 @@ class EnsemblePredictor:
 
     def __init__(self, yolo_weights: Optional[str] = None,
                  resnet_weights: Optional[str] = None,
-                 config: Optional[SystemConfig] = None, device="cuda"):
+                 config: Optional[SystemConfig] = None, device="cuda",
+                 int8_state: Optional[Dict] = None):
+        """``int8_state``: {"yolo": {"q", "scales"}, "resnet": {"q", "scales"}}
+        with numpy leaves (``yolo_vars`` / ``resnet_vars`` of another int8
+        predictor, of either package): served instead of calibrating anew."""
         cfg = config or SystemConfig()
         if isinstance(cfg, dict):
             cfg = SystemConfig.from_dict(cfg)
@@ -304,9 +356,12 @@ class EnsemblePredictor:
         self.max_detections = m.max_detections
         self.max_classified = m.max_classified
 
+        self.compute_dtype = torch.bfloat16 if m.compute_dtype == "bfloat16" else torch.float32
         self.yolo = YOLOv8(num_classes=m.num_classes, width_mult=m.width_mult,
-                           depth_mult=m.depth_mult, reg_max=m.reg_max, stem_mode=m.yolo_stem)
-        self.resnet = ResNet50(num_classes=m.num_classes, stage_sizes=m.resnet_stages)
+                           depth_mult=m.depth_mult, reg_max=m.reg_max, stem_mode=m.yolo_stem,
+                           dtype=self.compute_dtype)
+        self.resnet = ResNet50(num_classes=m.num_classes, stage_sizes=m.resnet_stages,
+                               dtype=self.compute_dtype)
         # "checkpoint" or "initialized" per network, surfaced by get_model_info
         self.weights_source: Dict[str, str] = {
             "yolo": self._init_or_load(self.yolo, yolo_weights or m.yolo_weights, seed=0),
@@ -314,6 +369,13 @@ class EnsemblePredictor:
         }
         self.precision_report = None
         self.pruning_report = None
+        # the int8 networks' state as numpy, {"q": tree, "scales": [n]}
+        self.yolo_vars = self.resnet_vars = None
+        self.calibration_seconds = None
+        if cfg.edge.precision == "int8":
+            self._setup_int8(int8_state)
+        elif int8_state is not None:
+            raise ValueError("int8_state needs edge.precision int8")
         # guards the thresholds and weights that _args reads, so that an
         # update from another thread is seen whole or not at all
         self.params_lock = threading.Lock()
@@ -325,7 +387,127 @@ class EnsemblePredictor:
             self.max_classified, classifier_input=m.classifier_input,
             max_segmented=m.max_segmented, roi_size=m.seg_roi_size,
             crop_pool=m.max_classified_pool, seg_pool=m.max_segmented_pool,
+            compute_dtype=self.compute_dtype,
         ).to(self.device).eval()
+
+    # -- int8 serving ------------------------------------------------------------
+
+    def _setup_int8(self, state: Optional[Dict]) -> None:
+        """Quantize both networks and calibrate their activation scales on
+        this predictor's device: YOLO first (fold, calibrate on the folded
+        float forward, quantize with the scales folded into the weights),
+        then ResNet (quantize, calibrate on the v1 walk). A given ``state``
+        is installed instead."""
+        cfg, m = self.config, self.config.model
+        if not _env_flag("IQC_YOLO_INT8_STREAM", cfg.edge.yolo_int8_stream):
+            raise ValueError("the v1 int8 YOLO walk (IQC_YOLO_INT8_STREAM=0) is not ported")
+        self._resnet_stream = _env_flag("IQC_RESNET_INT8_STREAM", cfg.edge.resnet_int8_stream)
+        yolo_fp = to_flax(self.yolo)
+        resnet_fp = to_flax(self.resnet)
+        self._fp_bytes = {"yolo": resnet_int8.tree_size_bytes(yolo_fp),
+                          "resnet": resnet_int8.tree_size_bytes(resnet_fp)}
+        if state is not None:
+            self.install_yolo_int8(state["yolo"]["q"], state["yolo"]["scales"])
+            self.install_resnet_int8(state["resnet"]["q"], state["resnet"]["scales"])
+            return
+        t0 = time.perf_counter()
+        fp_tree = yolo_int8_stream.device_tree(
+            yolo_int8_stream.fold_fp(yolo_fp, stem_mode=m.yolo_stem), self.device)
+        batches = (torch.from_numpy(b).to(self.device) for b in self._yolo_calibration_batches())
+        yscales = yolo_int8_stream.calibrate(fp_tree, batches, reg_max=m.reg_max,
+                                             num_classes=len(self.class_names))
+        yscales = yscales.cpu().numpy()
+        del fp_tree
+        yq = yolo_int8_stream.quantize(yolo_fp, yscales, stem_mode=m.yolo_stem,
+                                       reg_max=m.reg_max, num_classes=len(self.class_names))
+        stages = tuple(m.resnet_stages)
+        rq = resnet_int8.quantize_resnet(resnet_fp, stages)
+        dev_q = resnet_int8.device_tree(rq, self.device)
+        batches = (torch.from_numpy(b).to(self.device)
+                   for b in self._calibration_batches(m.classifier_input))
+        rscales = resnet_int8.calibrate_activation_scales(dev_q, batches, stages).cpu().numpy()
+        del dev_q
+        self.install_yolo_int8(yq, yscales)
+        self.install_resnet_int8(rq, rscales)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.calibration_seconds = time.perf_counter() - t0
+
+    def install_yolo_int8(self, q: Dict, scales) -> None:
+        """Serve the int8-resident YOLO of tree ``q`` and scales ``scales``
+        (numpy; ``yolo_int8_stream.quantize`` of either package)."""
+        m = self.config.model
+        if len(scales) != yolo_int8_stream.n_tensors(m.depth_mult, m.yolo_stem):
+            raise ValueError(f"{len(scales)} YOLO scales for "
+                             f"{yolo_int8_stream.n_tensors(m.depth_mult, m.yolo_stem)} tensors")
+        self.yolo_vars = {"q": q, "scales": np.asarray(scales, np.float32)}
+        self.yolo = Int8YOLO(q, scales, m.reg_max, len(self.class_names), self.device)
+        self._report()
+
+    def install_resnet_int8(self, q: Dict, scales) -> None:
+        """Serve the int8 ResNet of tree ``q`` and scales ``scales`` (numpy;
+        ``resnet_int8.quantize_resnet`` of either package)."""
+        stages = tuple(self.config.model.resnet_stages)
+        if len(scales) != resnet_int8.n_convs(stages):
+            raise ValueError(f"{len(scales)} ResNet scales for {resnet_int8.n_convs(stages)} convs")
+        self.resnet_vars = {"q": q, "scales": np.asarray(scales, np.float32)}
+        self.resnet = Int8ResNet(q, scales, stages, self._resnet_stream, self.device)
+        self._report()
+
+    def _report(self) -> None:
+        if self.yolo_vars is None or self.resnet_vars is None:
+            return
+        fwd = getattr(self, "_forward_full", None)
+        if fwd is not None:
+            fwd.yolo, fwd.resnet = self.yolo, self.resnet
+        yq_bytes = resnet_int8.tree_size_bytes(self.yolo_vars["q"])
+        q_bytes = resnet_int8.tree_size_bytes(self.resnet_vars["q"])
+        resnet_mode = ("true-int8 MXU, int8-resident activations (streaming v2)"
+                       if self._resnet_stream else
+                       "true-int8 MXU (static calibrated activations)")
+        self.precision_report = {
+            "precision": "int8",
+            "resnet": resnet_mode,
+            "yolo": "true-int8 MXU, int8-resident activations (streaming v2)",
+            "resnet_size_reduction_percent": round(
+                100.0 * (1 - q_bytes / max(self._fp_bytes["resnet"], 1)), 1),
+            "yolo_size_reduction_percent": round(
+                100.0 * (1 - yq_bytes / max(self._fp_bytes["yolo"], 1)), 1),
+        }
+
+    def _calibration_batches(self, ci: int, n: int = 24):
+        """ImageNet-normalised synthetic defect crops (24, seed 123) for the
+        ResNet's activation calibration: each image's first valid defect
+        box, widened by 1.3 (at least 32 px), bicubic-resized to ci x ci."""
+        ds = SyntheticDefectDataset(n, 320, 8, seed=123, cache=False)
+        crops = []
+        for i in range(n):
+            img, boxes, _, valid = ds.load(i)
+            s0 = img.shape[0]
+            if valid.any():
+                x1, y1, x2, y2 = boxes[np.argmax(valid)]
+                cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+                half = max(x2 - x1, y2 - y1, 32) / 2 * 1.3
+                x1 = int(np.clip(cx - half, 0, s0 - 2))
+                y1 = int(np.clip(cy - half, 0, s0 - 2))
+                x2 = int(np.clip(cx + half, x1 + 2, s0))
+                y2 = int(np.clip(cy + half, y1 + 2, s0))
+                patch = img[y1:y2, x1:x2]
+            else:
+                patch = img
+            crops.append(np.asarray(resize_bicubic(patch, (ci, ci)), np.float32))
+        arr = np.stack(crops) / 255.0
+        arr = (arr - np.asarray(imops.IMAGENET_MEAN)) / np.asarray(imops.IMAGENET_STD)
+        yield arr.astype(np.float32)
+
+    def _yolo_calibration_batches(self, n: int = 8):
+        """Synthetic defect frames (8, seed 321) bicubic-resized to the
+        detector input, scaled to [0, 1], for the YOLO calibration."""
+        h, w = self.input_size
+        ds = SyntheticDefectDataset(n, 320, 8, seed=321, cache=False)
+        frames = [np.asarray(resize_bicubic(ds.load(i)[0], (w, h)), np.float32)
+                  for i in range(n)]
+        yield np.stack(frames) / 255.0
 
     @staticmethod
     def _init_or_load(module: nn.Module, path: str, seed: int) -> str:

@@ -8,6 +8,9 @@ Padding follows the checkpoints' Flax definition: the stem conv pads (3,3)
 and the max pool (1,1), explicitly; every other conv pads "SAME", which for
 a stride-2 3x3 conv on an even input is (0,1), not (1,1), so it is padded
 explicitly with ``F.pad``.
+
+``dtype=torch.bfloat16`` runs the backbone in bfloat16 (``layers``); the
+pooled features and the head stay float32.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from iqc_tpu_torch.models.layers import BatchNorm
+from iqc_tpu_torch.models.layers import BatchNorm, conv2d
 from iqc_tpu_torch.ops import image as imops
 
 
@@ -40,7 +43,7 @@ class SameConv(nn.Conv2d):
         left, right = _same_pad(x.shape[3], k, s)
         if top or bottom or left or right:
             x = F.pad(x, (left, right, top, bottom))
-        return super().forward(x)
+        return conv2d(self, x)
 
 
 class Bottleneck(nn.Module):
@@ -69,8 +72,9 @@ class Bottleneck(nn.Module):
 
 class ResNet50(nn.Module):
     def __init__(self, num_classes: int = 5, stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 head_hidden: int = 512):
+                 head_hidden: int = 512, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         self.stem_conv = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
         self.stem_bn = BatchNorm(64, eps=1e-5)
         cin = 64
@@ -86,11 +90,12 @@ class ResNet50(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: NHWC float [B,H,W,3] -> logits [B,C]."""
-        x = F.relu(self.stem_bn(self.stem_conv(x.permute(0, 3, 1, 2))))
+        x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
+        x = F.relu(self.stem_bn(conv2d(self.stem_conv, x)))
         x = F.max_pool2d(x, 3, 2, 1)
         for name in self.blocks:
             x = getattr(self, name)(x)
-        features = torch.mean(x, dim=(2, 3))
+        features = torch.mean(x, dim=(2, 3)).to(torch.float32)
         return self.head_dense2(F.relu(self.head_dense1(features)))
 
 

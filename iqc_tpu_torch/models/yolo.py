@@ -7,6 +7,9 @@ the JAX package does. Inside, activations are NCHW.
 
 Width and depth multipliers follow the YOLOv8 family (n: 0.25/0.334);
 channels snap to multiples of 8. BatchNorm epsilon is 1e-3.
+
+``dtype=torch.bfloat16`` runs the whole network in bfloat16 (``layers``);
+the logits are then bfloat16.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from iqc_tpu_torch.models.layers import BatchNorm
+from iqc_tpu_torch.models.layers import BatchNorm, conv2d, silu
 
 STRIDES = (8, 16, 32)
 
@@ -39,7 +42,7 @@ class ConvBN(nn.Module):
         self.BatchNorm_0 = BatchNorm(cout, eps=1e-3)
 
     def forward(self, x):
-        return F.silu(self.BatchNorm_0(self.Conv_0(x)))
+        return silu(self.BatchNorm_0(conv2d(self.Conv_0, x)))
 
 
 class C2fBottleneck(nn.Module):
@@ -118,15 +121,17 @@ class DetectHead(nn.Module):
         self.cls_out = nn.Conv2d(cls_ch, num_classes, 1)
 
     def forward(self, x):
-        dist = self.box_out(self.ConvBN_1(self.ConvBN_0(x)))
-        cls = self.cls_out(self.ConvBN_3(self.ConvBN_2(x)))
+        dist = conv2d(self.box_out, self.ConvBN_1(self.ConvBN_0(x)))
+        cls = conv2d(self.cls_out, self.ConvBN_3(self.ConvBN_2(x)))
         return dist, cls
 
 
 class YOLOv8(nn.Module):
     def __init__(self, num_classes: int = 5, width_mult: float = 0.25,
-                 depth_mult: float = 0.334, reg_max: int = 16, stem_mode: str = "conv"):
+                 depth_mult: float = 0.334, reg_max: int = 16, stem_mode: str = "conv",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         self.num_classes = num_classes
         self.reg_max = reg_max
         self.stem_mode = stem_mode
@@ -159,6 +164,7 @@ class YOLOv8(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: NHWC float [B,H,W,3]."""
+        x = x.to(self.compute_dtype)
         if self.stem_mode == "s2d":
             x = self.stem_s2d(space_to_depth(x, 4).permute(0, 3, 1, 2))
         else:

@@ -195,11 +195,18 @@ def _interp_matrix(samples: torch.Tensor, size: int) -> torch.Tensor:
 
 
 def crop_and_resize(images: torch.Tensor, boxes: torch.Tensor,
-                    out_size: Tuple[int, int]) -> torch.Tensor:
+                    out_size: Tuple[int, int],
+                    compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Bilinear crops of ``boxes`` [B,N,4] (x1,y1,x2,y2 pixels) from
     ``images`` [B,H,W,C] -> [B,N,oh,ow,C] float32. Half-pixel sample grid
     over each box (width and height at least 1 px); samples outside the image
-    clamp to its edge."""
+    clamp to its edge.
+
+    ``compute_dtype=torch.bfloat16`` rounds the image, the interpolation
+    weights and the row pass to bfloat16 and accumulates both passes in
+    float32: the products of bfloat16 operands are exact in float32, so the
+    float32 contractions of the rounded operands (TF32 off) are the
+    bfloat16-operand, float32-accumulate products."""
     h, w = images.shape[1], images.shape[2]
     oh, ow = out_size
     boxes = boxes.to(torch.float32)
@@ -210,8 +217,9 @@ def crop_and_resize(images: torch.Tensor, boxes: torch.Tensor,
     gx = torch.arange(ow, dtype=torch.float32, device=images.device) + 0.5
     ys = y1[..., None] + gy * bh[..., None] / oh - 0.5
     xs = x1[..., None] + gx * bw[..., None] / ow - 0.5
-    wy = _interp_matrix(ys, h)  # [B,N,oh,H]
-    wx = _interp_matrix(xs, w)  # [B,N,ow,W]
-    img = images.to(torch.float32)
+    rnd = lambda t: t.to(compute_dtype).to(torch.float32)
+    wy = rnd(_interp_matrix(ys, h))  # [B,N,oh,H]
+    wx = rnd(_interp_matrix(xs, w))  # [B,N,ow,W]
+    img = rnd(images.to(torch.float32))
     rows = torch.einsum("bnoh,bhwc->bnowc", wy, img)
-    return torch.einsum("bnpw,bnowc->bnopc", wx, rows)
+    return torch.einsum("bnpw,bnowc->bnopc", wx, rnd(rows))

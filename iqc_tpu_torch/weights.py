@@ -11,7 +11,9 @@ else raises.
 modules, whose submodule names follow the Flax scopes (``Conv_0``,
 ``BatchNorm_0``, ``stage1_block1`` ...): conv kernels HWIO -> OIHW, dense
 kernels [in,out] -> [out,in], BatchNorm ``scale``/``mean``/``var`` ->
-``weight``/``running_mean``/``running_var``.
+``weight``/``running_mean``/``running_var``; ``to_flax`` is its inverse.
+``install_int8_state`` puts the JAX package's quantized networks (trees and
+activation scales, as numpy) into the port's int8 predictor.
 """
 
 from __future__ import annotations
@@ -201,3 +203,54 @@ def load_into(module: torch.nn.Module, variables: Dict[str, Any]) -> None:
             raise ValueError(f"checkpoint leaf {k} has shape {tuple(v.shape)}, "
                              f"model expects {tuple(own[k].shape)}")
     module.load_state_dict(sd, strict=True)
+
+
+def to_flax(module: torch.nn.Module) -> Dict[str, Any]:
+    """The port's module -> Flax variables {params, batch_stats} of numpy
+    float32 arrays (the inverse of ``from_flax``)."""
+    from iqc_tpu_torch.models.layers import BatchNorm
+
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+
+    def put(tree, scope, leaf, value):
+        for name in scope:
+            tree = tree.setdefault(name, {})
+        tree[leaf] = np.array(value.detach().cpu().numpy(), np.float32, order="C")
+
+    for name, m in module.named_modules():
+        scope = name.split(".") if name else []
+        if isinstance(m, BatchNorm):
+            put(params, scope, "scale", m.weight)
+            put(params, scope, "bias", m.bias)
+            put(stats, scope, "mean", m.running_mean)
+            put(stats, scope, "var", m.running_var)
+        elif isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+            w = m.weight.detach()
+            put(params, scope, "kernel", w.permute(2, 3, 1, 0) if w.dim() == 4 else w.t())
+            if m.bias is not None:
+                put(params, scope, "bias", m.bias)
+    return {"params": params, "batch_stats": stats}
+
+
+def install_int8_state(predictor, yolo_vars: Dict[str, Any] = None,
+                       resnet_vars: Dict[str, Any] = None) -> None:
+    """Install quantized networks in an int8 ``EnsemblePredictor``: each of
+    ``yolo_vars`` / ``resnet_vars`` is {"q": int8 tree, "scales": [n]} with
+    numpy leaves, as the JAX package's predictor holds them after its int8
+    set-up (``yolo_vars`` for the streaming walk). The predictor then runs
+    those codes and scales instead of its own."""
+    if predictor.config.edge.precision != "int8":
+        raise ValueError("int8 state goes into a predictor at edge.precision int8")
+
+    def host(tree):
+        if isinstance(tree, dict):
+            return {k: host(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [host(v) for v in tree]
+        return np.asarray(tree)
+
+    if yolo_vars is not None:
+        predictor.install_yolo_int8(host(yolo_vars["q"]), host(yolo_vars["scales"]))
+    if resnet_vars is not None:
+        predictor.install_resnet_int8(host(resnet_vars["q"]), host(resnet_vars["scales"]))

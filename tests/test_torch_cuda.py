@@ -4,7 +4,8 @@ Skips without a CUDA device. This file imports neither JAX nor the JAX
 package, so that it runs on a machine without them:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 
-Tolerance: keep masks and morphology masks are booleans and must be EQUAL.
+Tolerance: keep masks and morphology masks are booleans and must be EQUAL;
+the int8 convolution's int32 accumulators on the card EQUAL the CPU's.
 """
 
 import numpy as np
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from iqc_tpu_torch import build
+from iqc_tpu_torch.models import int8_conv
 from iqc_tpu_torch.ops import morph_kernel, nms_kernel
 
 
@@ -191,3 +193,49 @@ def test_morph_entry_points_write_only_their_outputs(cuda, n, r):
     want = morph_kernel.grow_clean_plain(seeds.cpu(), allow.cpu(), 24, 16)
     assert torch.equal(out_g.cpu().bool(), want)
     assert torch.equal(out_c.cpu().bool(), morph_kernel.clean_plain(masks.cpu(), 16))
+
+
+# (label, NHWC input, HWIO kernel, stride, padding): the padded shape classes
+# of the int8 networks at the shapes of a request
+INT8_CONV_CASES = [
+    ("yolo_stem_640_k27", (1, 640, 640, 3), (3, 3, 3, 16), 2, [(1, 1), (1, 1)]),
+    ("resnet_stem_128_k147", (32, 128, 128, 3), (7, 7, 3, 64), 2, [(3, 3), (3, 3)]),
+    ("global_stage4_m16", (1, 4, 4, 2048), (1, 1, 2048, 512), 1, "SAME"),
+    ("global_stage4_m16_3x3", (1, 4, 4, 512), (3, 3, 512, 512), 1, "SAME"),
+    ("resnet_s2_asymmetric", (4, 32, 32, 128), (3, 3, 128, 128), 2, "SAME"),
+    ("resnet_down_1x1_s2", (4, 32, 32, 256), (1, 1, 256, 512), 2, "SAME"),
+    ("yolo_head_cls5", (1, 20, 20, 64), (1, 1, 64, 5), 1, [(0, 0), (0, 0)]),
+    ("yolo_k3_s1", (2, 80, 80, 32), (3, 3, 32, 32), 1, [(1, 1), (1, 1)]),
+    ("m4", (1, 4, 4, 8), (3, 3, 8, 8), 2, "SAME"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INT8_CONV_CASES, ids=[c[0] for c in INT8_CONV_CASES])
+def test_int8_conv_on_the_card_equals_the_cpu(cuda, case):
+    _, xs, ws, stride, padding = case
+    g = torch.Generator().manual_seed(xs[-1] * 7 + ws[-1])
+    x = torch.randint(-127, 128, xs, dtype=torch.int8, generator=g)
+    w = torch.randint(-127, 128, ws, dtype=torch.int8, generator=g)
+    want = int8_conv.conv_int8(x, int8_conv.prepare_weight(w), stride, padding)
+    got = int8_conv.conv_int8(x.to(cuda), int8_conv.prepare_weight(w.to(cuda)), stride, padding)
+    assert got.is_cuda and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_int8_matmul_refuses_what_int_mm_refuses_on_the_card(cuda):
+    """torch._int_mm on the card refuses K = 27 and M = 16; the wrapper
+    raises before the call, and pads M itself."""
+    a = torch.randint(-127, 128, (32, 27), dtype=torch.int8, device=cuda)
+    bt = torch.randint(-127, 128, (16, 27), dtype=torch.int8, device=cuda)
+    with pytest.raises(RuntimeError):
+        torch._int_mm(a, bt.t())
+    with pytest.raises(ValueError):
+        int8_conv.int_mm(a, bt)
+    a16 = torch.randint(-127, 128, (16, 32), dtype=torch.int8, device=cuda)
+    b16 = torch.randint(-127, 128, (8, 32), dtype=torch.int8, device=cuda)
+    with pytest.raises(RuntimeError):
+        torch._int_mm(a16, b16.t())
+    got = int8_conv.int_mm(a16, b16)
+    assert torch.equal(got.cpu(), a16.cpu().int() @ b16.cpu().int().t())

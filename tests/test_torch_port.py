@@ -55,17 +55,13 @@ def test_port_imports_nothing_of_jax_or_the_jax_package(path):
 
 def test_config_defaults_are_the_shipped_profile():
     """Every field of the port's configuration equals config/config.yaml as
-    the JAX package loads it, apart from the precision fields (the port's
-    first slice serves float32)."""
+    the JAX package loads it, the precision fields included (bfloat16
+    compute, int8 serving with both streaming walks)."""
     want = load_config(os.path.join(REPO_ROOT, "config", "config.yaml"))
     got = SystemConfig()
-    skip = {("model", "compute_dtype"), ("edge", "precision")}
 
     def compare(g, w, path):
         for f in dataclasses.fields(g):
-            key = (path[-1] if path else None, f.name)
-            if key in skip:
-                continue
             gv, wv = getattr(g, f.name), getattr(w, f.name)
             if dataclasses.is_dataclass(gv):
                 compare(gv, wv, path + (f.name,))
@@ -73,7 +69,8 @@ def test_config_defaults_are_the_shipped_profile():
                 assert gv == wv, (path + (f.name,), gv, wv)
 
     compare(got, want, ())
-    assert got.model.compute_dtype == "float32" and got.edge.precision == "fp32"
+    assert got.model.compute_dtype == "bfloat16" and got.edge.precision == "int8"
+    assert got.edge.yolo_int8 and got.edge.yolo_int8_stream and got.edge.resnet_int8_stream
 
 
 def test_config_from_dict_and_validation():
@@ -83,7 +80,13 @@ def test_config_from_dict_and_validation():
     assert cfg.model.max_detections == 100 and cfg.model.resnet_stages == (1, 1, 1, 1)
     assert cfg.processing.input_size == (320, 320) and cfg.model.max_classified == 32
     assert cfg.update({"model": {"nms_threshold": 0.4}}).model.nms_threshold == 0.4
-    for bad in ({"edge": {"precision": "int8"}}, {"model": {"compute_dtype": "bfloat16"}},
+    for ok in ({"edge": {"precision": p}} for p in ("fp32", "bf16", "int8")):
+        assert SystemConfig.from_dict(ok).edge.precision == ok["edge"]["precision"]
+    assert SystemConfig.from_dict({"model": {"compute_dtype": "float32"}}).model.compute_dtype \
+        == "float32"
+    for bad in ({"edge": {"yolo_int8": False}}, {"edge": {"yolo_int8_stream": False}},
+                {"edge": {"sparsity": 0.5}}, {"edge": {"precision": "fp16"}},
+                {"model": {"compute_dtype": "float16"}},
                 {"processing": {"input_size": [100, 100]}},
                 {"processing": {"preprocessing": {"denoise": True}}}):
         with pytest.raises(ValueError):

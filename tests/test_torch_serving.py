@@ -171,7 +171,9 @@ def systems(tiny_config):
                                                 area_threshold_percent=1000.0)
     js = JaxSystem(config=type(tiny_config).from_dict(copy.deepcopy(raw)))
     assert js.initialize_models()
-    raw["edge"] = {"precision": "fp32"}
+    # the JAX block's edge fields (max_batch_size, the int8 walk flags) with
+    # the precision the port serves here
+    raw["edge"] = dict(raw["edge"], precision="fp32")
     ts = QualityControlSystem(config=SystemConfig.from_dict(raw), device="cpu")
     assert ts.device == "cpu" and ts.initialize_models()
     assert ts.detector.device.type == "cpu"
