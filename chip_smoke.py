@@ -35,7 +35,18 @@ Phases, each under a deadline and printed with its wall time:
   8. networks: YOLOv8n at [1|8,640,640,3] and ResNet-50 at [32|128|1,128,128,3]
      in float32 (cuDNN, TF32 off), bfloat16 (cuDNN) and int8 (im2col and
      torch._int_mm), ms by CUDA events, and the kernels each int8 forward
-     launches (torch.profiler).
+     launches (torch.profiler);
+  9. options and entry points, on the shipped checkpoints at 640^2: the int8
+     detector with denoise and enhance_contrast, then with the v1 YOLO walk
+     (yolo_int8_stream false), then with weight-only int8 YOLO (yolo_int8
+     false), then pruned (sparsity 0.5, structured), each held against the
+     same detector on the CPU serving the card's quantized networks;
+     YOLODetector.predict and batch_predict of 8, ResNetClassifier.predict,
+     predict_batch of 8 and extract_features, ImageSegmentator.segment_defects
+     and segment_batch of 8, each against the CPU; the morphology kernels
+     against their plain versions at the segmentator's ROI batches (32 and
+     256 ROIs); the bilateral filter and CLAHE timed at [1|8,640,640,3];
+     the kernels' launch counters read around every path.
 Then one JSON line of kernel measurements, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits nonzero without that line.
 Needs one CUDA device; exits nonzero at once without one.
@@ -456,10 +467,10 @@ FP32 = {"edge": {"precision": "fp32"}, "model": {"compute_dtype": "float32"}}
 BF16 = {"edge": {"precision": "bf16"}, "model": {"compute_dtype": "bfloat16"}}
 
 
-def build_detector(torch, overrides=None, label="int8"):
+def build_detector(torch, overrides=None, label="int8", yolo_mode=STREAM_MODE):
     """QualityControlDetector on the card at the shipped profile with
     ``overrides``; checks the weights' source, the device and, at int8, the
-    precision report."""
+    precision report (the ResNet streaming, the YOLO as ``yolo_mode``)."""
     from iqc_tpu_torch.config import SystemConfig
     from iqc_tpu_torch.inference.detector import QualityControlDetector
 
@@ -483,8 +494,8 @@ def build_detector(torch, overrides=None, label="int8"):
     if det.config.edge.precision == "int8":
         check(report is not None and report["precision"] == "int8",
               f"int8 profile without an int8 report: {report}")
-        check(report["yolo"] == STREAM_MODE and report["resnet"] == STREAM_MODE,
-              f"not both streaming walks: {report}")
+        check(report["yolo"] == yolo_mode and report["resnet"] == STREAM_MODE,
+              f"not the expected walks: {report}")
         check(ens.calibration_seconds is not None and ens.calibration_seconds > 0,
               "no calibration ran")
         print(f"calibration (quantize + calibrate both networks on the card): "
@@ -596,9 +607,26 @@ def phase_cross_check(torch, det_gpu, image, conf):
           f"{qa_g['quality_grade']} on both")
 
 
-def phase_cross_check_int8(torch, det_gpu, image, conf):
+def check_preprocessing(torch, det_gpu, det_cpu, image, label):
+    """The denoise and contrast steps on the card against the CPU: CLAHE
+    bins its input, so a pixel whose filtered luma sits on a bin edge can
+    take the next bin's mapping on one side. At most 0.1% of the values
+    beyond 1e-5, each within 0.05. Returns the card's preprocessed frame."""
+    x = det_gpu._preprocess(det_gpu._upload(image)[None])
+    err = (x.cpu() - det_cpu._preprocess(det_cpu._upload(image)[None])).abs()
+    share = float((err > 1e-5).float().mean())
+    print(f"{label} preprocessing card vs CPU: {share * 100:.4f}% of values beyond 1e-5, "
+          f"largest difference {float(err.max()):.3e}")
+    check(share <= 1e-3 and float(err.max()) <= 0.05,
+          f"{label}: preprocessing differs on {share} of values, by up to {float(err.max())}")
+    return x
+
+
+def phase_cross_check_int8(torch, det_gpu, image, conf, label="int8"):
     """One request on the card and on the CPU, the CPU serving the card's
-    quantized networks and scales (no calibration there)."""
+    quantized networks and scales (no calibration there). With the denoise
+    or contrast step on, both forwards take the card's preprocessed frame,
+    and the preprocessing is held against the CPU's on its own."""
     import numpy as np
 
     from iqc_tpu_torch.inference.detector import QualityControlDetector
@@ -608,14 +636,17 @@ def phase_cross_check_int8(torch, det_gpu, image, conf):
     det_cpu = QualityControlDetector(config=det_gpu.config, device="cpu", int8_state=state)
     check(det_cpu.ensemble_predictor.precision_report == ens.precision_report,
           "the CPU detector reports another precision")
+    pre = det_gpu.config.processing.preprocessing
+    shared = (check_preprocessing(torch, det_gpu, det_cpu, image, label)
+              if pre.denoise or pre.enhance_contrast else None)
     outs = []
     for det in (det_gpu, det_cpu):
         det.ensemble_predictor.confidence_threshold = conf
-        x = det._preprocess(det._upload(image)[None])
+        x = det._preprocess(det._upload(image)[None]) if shared is None else shared.to(det.device)
         outs.append(det.ensemble_predictor.run_full_host(x))
     (g, gm, gs), (c, cm, cs) = outs
     vg, vc = g.valid, c.valid
-    print(f"int8 card vs CPU at confidence {conf}: {int(vg.sum())} detections on the card, "
+    print(f"{label} card vs CPU at confidence {conf}: {int(vg.sum())} detections on the card, "
           f"{int(vc.sum())} on the CPU")
     check(np.array_equal(vg, vc), "valid slots differ between card and CPU")
     v = vc
@@ -625,7 +656,7 @@ def phase_cross_check_int8(torch, det_gpu, image, conf):
     ens_err = float(np.abs(g.ensemble_conf[v] - c.ensemble_conf[v]).max()) if v.any() else 0.0
     prob_err = float(np.abs(g.global_probs - c.global_probs).max())
     agree = float(np.mean(gm == cm))
-    print(f"int8 card vs CPU: boxes within {box_err:.3e} px, detector scores within "
+    print(f"{label} card vs CPU: boxes within {box_err:.3e} px, detector scores within "
           f"{score_err:.3e}, crop confidences within {conf_err:.3e}, ensemble confidences "
           f"within {ens_err:.3e}, global probabilities within {prob_err:.3e}, masks agree on "
           f"{agree * 100:.4f}% of pixels")
@@ -641,7 +672,7 @@ def phase_cross_check_int8(torch, det_gpu, image, conf):
     qa_g, qa_c = rg["quality_assessment"], rc["quality_assessment"]
     check(qa_g["quality_grade"] == qa_c["quality_grade"]
           and qa_g["pass_fail_status"] == qa_c["pass_fail_status"], "int8 grades differ")
-    print(f"int8 grade {qa_g['quality_grade']} / {qa_g['pass_fail_status']} on both")
+    print(f"{label} grade {qa_g['quality_grade']} / {qa_g['pass_fail_status']} on both")
 
 
 def phase_fp32_bf16(torch, images, conf):
@@ -975,6 +1006,178 @@ def phase_networks(torch, det8, det32, det16):
     return rows
 
 
+# the serving options of phase 9: (label, config overrides, expected YOLO mode)
+V1_MODE = "true-int8 MXU (static calibrated activations)"
+OPTIONS = (
+    ("denoise+contrast", {"processing": {"preprocessing": {"denoise": True,
+                                                           "enhance_contrast": True}}},
+     STREAM_MODE),
+    ("v1 YOLO walk", {"edge": {"yolo_int8_stream": False}}, V1_MODE),
+    ("weight-only int8 YOLO", {"edge": {"yolo_int8": False}}, "weight-only int8 storage"),
+    ("pruned 0.5 structured", {"edge": {"sparsity": 0.5, "structured_pruning": True}},
+     STREAM_MODE),
+)
+YOLO_CKPT = "models/yolov8n_qc_synthetic.msgpack"
+RESNET_CKPT = "models/resnet50_qc_128.msgpack"
+
+
+def same_detections(got, want, what, score_atol):
+    """Classes and severities equal, pixel boxes within 1 px, confidences
+    within ``score_atol``."""
+    check([(d["class"], d["severity"]) for d in got] == [(d["class"], d["severity"]) for d in want],
+          f"{what}: {[d['class'] for d in got]} differ from {[d['class'] for d in want]}")
+    for a, b in zip(got, want):
+        check(all(abs(a["bbox"][k] - b["bbox"][k]) <= 1 for k in ("x1", "y1", "x2", "y2")),
+              f"{what}: boxes {a['bbox']} and {b['bbox']} differ")
+        check(abs(a["confidence"] - b["confidence"]) <= score_atol,
+              f"{what}: confidence {a['confidence']} and {b['confidence']} differ")
+
+
+def preprocessing_times(torch):
+    """Eager ms (CUDA events) and device ms (CUDA graph) of the bilateral
+    filter and of CLAHE's contrast step, at one frame and a batch of 8."""
+    from iqc_tpu_torch.ops import image as imops
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for b in (1, 8):
+        x = torch.rand((b, 640, 640, 3), device="cuda", generator=gen)
+        for name, fn in (("bilateral_filter", imops.bilateral_filter),
+                         ("enhance_contrast_rgb", imops.enhance_contrast_rgb)):
+            call = lambda fn=fn: fn(x)
+            check(bool(torch.isfinite(call()).all()), f"{name}: non-finite output")
+            eager = cuda_time_ms(call, warmup=2, iters=10)
+            device = graph_ms(torch, call, iters=2, replays=5)
+            kernels, _ = device_events_per_call(torch, call)
+            rows.append({"op": name, "shape": [b, 640, 640, 3], "eager_ms": eager,
+                         "device_ms": device, "kernels": kernels})
+            print(f"{name} [{b},640,640,3]: eager {eager:.3f} ms, device {device:.3f} ms, "
+                  f"{kernels} kernels a call")
+    return rows
+
+
+def standalone_kernel_rows(torch):
+    """K2 and K3 against their plain versions at the segmentator's ROI
+    batches: one image (32 ROIs) and 8 images (256); K3 cleans one more."""
+    dev = torch.device("cuda")
+    rows = {}
+    for rois in (32, 256):
+        for c in kernel_cases(torch, dev, 1, rois)[1:]:
+            got, want = c["wrapper"](), c["plain"]()
+            err = max_err(torch, got, want)
+            check(err == 0, f"{c['name']} {c['shape']} differs from its plain version")
+            bound_ms, bound_by = bound(c["n_bytes"], c["n_ops"])
+            m = {"shape": c["shape"], "ms": graph_ms(torch, c["raw"]),
+                 "wrapper_ms": cuda_time_ms(c["wrapper"]),
+                 "plain_ms": cuda_time_ms(c["plain"], warmup=2, iters=5),
+                 "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+            print(f"{c['name']} {c['shape']} (segmentator): equal to plain; device "
+                  f"{m['ms']:.5f} ms, wrapper {m['wrapper_ms']:.5f} ms, plain "
+                  f"{m['plain_ms']:.4f} ms, bound {bound_ms:.7f} ms ({bound_by})")
+            rows.setdefault(c["name"], []).append(m)
+    return rows
+
+
+def phase_options(torch, images, conf):
+    """The int8 detector under each serving option, card against CPU."""
+    launches = {}
+    for label, overrides, yolo_mode in OPTIONS:
+        det = build_detector(torch, overrides, label, yolo_mode)
+        det.ensemble_predictor.confidence_threshold = conf
+        reset_launches()
+        times = []
+        for img in images[:3]:
+            t = time.perf_counter()
+            r = det.predict(img)
+            times.append((time.perf_counter() - t) * 1e3)
+            check("error" not in r, f"{label}: predict failed: {r.get('error')}")
+        launches[label] = read_launches()
+        print(f"{label}: predict {', '.join(f'{ms:.1f}' for ms in times)} ms, "
+              f"{len(r['detections'])} detections on the last, pruning "
+              f"{det.ensemble_predictor.pruning_report}, launches {launches[label]}")
+        check(all(v > 0 for v in launches[label].values()),
+              f"{label}: a kernel was not launched: {launches[label]}")
+        phase_cross_check_int8(torch, det, images[0], conf, label)
+        del det
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_entry_points(torch, images):
+    """YOLODetector, ResNetClassifier and ImageSegmentator on the card
+    against the CPU, with the kernels' launches on each path."""
+    import numpy as np
+
+    from iqc_tpu_torch.inference.segmentation import ImageSegmentator
+    from iqc_tpu_torch.models import ResNetClassifier, YOLODetector
+
+    kw = dict(model_path=YOLO_CKPT, confidence_threshold=0.3)
+    yg, yc = YOLODetector(**kw, device="cuda"), YOLODetector(**kw, device="cpu")
+    check(yg.get_model_info()["weights_source"] == "checkpoint", "YOLODetector weights")
+    yg.predict(images[0])
+    reset_launches()
+    t = time.perf_counter()
+    singles = [yg.predict(img) for img in images[:4]]
+    single_ms = (time.perf_counter() - t) * 1e3 / 4
+    t = time.perf_counter()
+    batch = yg.batch_predict(images[:8])
+    batch_ms = (time.perf_counter() - t) * 1e3
+    yolo_launches = read_launches()
+    for i, r in enumerate(singles):
+        same_detections(r["detections"], yc.predict(images[i])["detections"],
+                        f"YOLODetector.predict frame {i}", 1e-4)
+    for i, (g, c) in enumerate(zip(batch, yc.batch_predict(images[:8]))):
+        same_detections(g["detections"], c["detections"], f"YOLODetector.batch_predict {i}", 1e-4)
+    print(f"YOLODetector on the card: predict {single_ms:.2f} ms, batch_predict of 8 "
+          f"{batch_ms:.2f} ms, detections {[r['total_detections'] for r in batch]}, launches "
+          f"{yolo_launches}; equal to the CPU's")
+    check(yolo_launches["suppress"] == 5, f"YOLODetector launched K1 {yolo_launches}")
+
+    cg = ResNetClassifier(model_path=RESNET_CKPT, device="cuda")
+    cc = ResNetClassifier(model_path=RESNET_CKPT, device="cpu")
+    pairs = [(cg.predict(images[0]), cc.predict(images[0]))]
+    pairs += list(zip(cg.predict_batch(images[:8]), cc.predict_batch(images[:8])))
+    prob_err = max(abs(g["class_probabilities"][k] - c["class_probabilities"][k])
+                   for g, c in pairs for k in c["class_probabilities"])
+    check(all(g["predicted_class"] == c["predicted_class"] and g["severity"] == c["severity"]
+              for g, c in pairs), "ResNetClassifier classes differ between card and CPU")
+    check(prob_err <= 1e-4, f"ResNetClassifier probabilities differ by {prob_err}")
+    fg, fc = cg.extract_features(images[1]), cc.extract_features(images[1])
+    feat_err = float(np.abs(fg - fc).max() / np.abs(fc).max())
+    check(fg.shape == (2048,) and feat_err <= 1e-4, f"features differ by {feat_err}")
+    print(f"ResNetClassifier on the card: {pairs[0][0]['predicted_class']} "
+          f"({pairs[0][0]['confidence']:.4f}), probabilities within {prob_err:.2e}, "
+          f"features within {feat_err:.2e} of their largest magnitude")
+
+    dets = [r["detections"] for r in batch]
+    if not any(dets):  # boxes over each frame's centre where the detector found nothing
+        dets = [[{"class": "crack", "confidence": 0.5,
+                  "bbox": {"x1": 200, "y1": 200, "x2": 300, "y2": 260}}] for _ in images[:8]]
+    sg, sc = ImageSegmentator(device="cuda"), ImageSegmentator(device="cpu")
+    first = next(i for i, d in enumerate(dets) if d)
+    sg.segment_defects(images[first], dets[first])
+    reset_launches()
+    one = sg.segment_defects(images[first], dets[first])
+    t = time.perf_counter()
+    many = sg.segment_batch(np.stack(images[:8]), dets)
+    seg_ms = (time.perf_counter() - t) * 1e3
+    seg_launches = read_launches()
+    agree = []
+    for g, c in [(one, sc.segment_defects(images[first], dets[first]))] + list(
+            zip(many, sc.segment_batch(np.stack(images[:8]), dets))):
+        check(len(g["segmented_regions"]) == len(c["segmented_regions"]), "region counts differ")
+        for rg, rc in zip(g["segmented_regions"], c["segmented_regions"]):
+            check(rg["segmentation_method"] == rc["segmentation_method"], "methods differ")
+            agree.append(float(np.mean(rg["local_mask"] == rc["local_mask"])))
+    check(agree and min(agree) >= MASK_AGREEMENT, f"segmentation masks agree on {min(agree)}")
+    print(f"ImageSegmentator on the card: segment_batch of 8 {seg_ms:.2f} ms, "
+          f"{sum(len(d) for d in dets)} boxes, masks agree on at least {min(agree) * 100:.4f}% "
+          f"of pixels, launches {seg_launches}")
+    check(seg_launches["grow_clean"] == seg_launches["clean"] == 2 and
+          seg_launches["suppress"] == 0, f"ImageSegmentator launches {seg_launches}")
+    return yolo_launches, seg_launches
+
+
 def main() -> int:
     t_all = time.perf_counter()
     try:
@@ -1009,6 +1212,13 @@ def main() -> int:
             serving, per_request, detection_only = phase_serving(torch, images, conf)
         with Phase("networks", 300):
             networks = phase_networks(torch, det, det32, det16)
+        del det, det32, det16
+        torch.cuda.empty_cache()
+        with Phase("options and entry points", 480):
+            option_launches = phase_options(torch, images, conf)
+            yolo_launches, seg_launches = phase_entry_points(torch, images)
+            standalone = standalone_kernel_rows(torch)
+            preprocessing = preprocessing_times(torch)
     except Exception as e:  # every phase failure ends the run without a result
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)
         return 1
@@ -1019,7 +1229,13 @@ def main() -> int:
         row["launches_serving"] = serving[counter]
         row["launches_per_http_request"] = per_request[counter]
         row["launches_per_detection_only_request"] = detection_only[counter]
+        row["launches_options"] = {k: v[counter] for k, v in option_launches.items()}
+        row["launches_yolo_detector"] = yolo_launches[counter]
+        row["launches_image_segmentator"] = seg_launches[counter]
+        if counter in standalone:
+            row["segmentator_shapes"] = standalone[counter]
     print(json.dumps({"networks": networks}))
+    print(json.dumps({"preprocessing": preprocessing}))
     print(f"total wall time {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -109,9 +109,6 @@ class ProcessingConfig:
         h, w = self.input_size
         if h % 32 or w % 32:
             raise ValueError("input_size must be a multiple of the max stride (32)")
-        pre = self.preprocessing
-        if pre.denoise or pre.enhance_contrast:
-            raise ValueError("denoise and enhance_contrast preprocessing are not ported")
 
 
 @dataclass
@@ -138,10 +135,15 @@ class QualityControlConfig:
 class EdgeConfig:
     """Serving precision. ``int8``: int8 convolutions with statically
     calibrated activation scales for both networks, walked with int8 codes
-    between convolutions (``yolo_int8_stream``, ``resnet_int8_stream``);
+    between convolutions (``yolo_int8_stream``, ``resnet_int8_stream``) or
+    with a quantize before every convolution (the v1 walks, flags false);
     the environment variables ``IQC_YOLO_INT8_STREAM`` and
     ``IQC_RESNET_INT8_STREAM`` (``1``/``0``) override the two walk flags.
-    ``fp32`` and ``bf16`` serve the float networks in ``model.compute_dtype``."""
+    ``yolo_int8: false`` stores the YOLO weights as int8 and serves them
+    dequantized through the float network. ``fp32`` and ``bf16`` serve the
+    float networks in ``model.compute_dtype``. ``sparsity`` > 0 prunes both
+    networks by magnitude before any precision lowering (whole output
+    channels with ``structured_pruning``)."""
 
     precision: str = "int8"  # fp32 | bf16 | int8
     yolo_int8: bool = True
@@ -156,14 +158,6 @@ class EdgeConfig:
             raise ValueError(f"unknown precision {self.precision!r}")
         if not 0.0 <= self.sparsity < 1.0:
             raise ValueError(f"sparsity out of range: {self.sparsity}")
-        if self.sparsity > 0.0:
-            raise ValueError("magnitude pruning (edge.sparsity > 0) is not ported")
-        if self.precision == "int8" and not self.yolo_int8:
-            raise ValueError("weight-only int8 storage for YOLO (edge.yolo_int8: false) "
-                             "is not ported")
-        if self.precision == "int8" and not self.yolo_int8_stream:
-            raise ValueError("the v1 int8 YOLO walk (edge.yolo_int8_stream: false) "
-                             "is not ported")
 
 
 @dataclass

@@ -1,8 +1,9 @@
 """Quality-control detector: the request entry point.
 
-validate -> preprocess (to float, resize to the model input) -> the full
-forward (detection, crop classification, fusion, segmentation) -> result
-assembly -> post-processing, on one device. ``predict`` serves one image
+validate -> preprocess (to float, resize to the model input, the optional
+denoise and contrast steps) -> the full forward (detection, crop
+classification, fusion, segmentation) -> result assembly ->
+post-processing, on one device. ``predict`` serves one image
 (with ``include_segmentation=False``, the detection-only forward),
 ``predict_batch`` stacks images into one device batch (padded to a power of
 two, at most ``processing.batch_size``), ``predict_stream`` serves an
@@ -66,7 +67,7 @@ class QualityControlDetector:
         self.ensemble_predictor = EnsemblePredictor(
             yolo_weights=yolo_weights, resnet_weights=resnet_weights,
             config=self.config, device=self.device, int8_state=int8_state)
-        self.segmentator = ImageSegmentator(self.config)
+        self.segmentator = ImageSegmentator(self.config, device=self.device)
         self.postprocessor = PostProcessor(self.config)
         self._stats_lock = threading.Lock()
         self.performance_stats = {"total_predictions": 0, "total_time": 0.0, "average_time": 0.0}
@@ -83,11 +84,17 @@ class QualityControlDetector:
         return self._device_thread.submit(fn, *args).result()
 
     def _preprocess(self, images: torch.Tensor) -> torch.Tensor:
-        """[B,H,W,3] uint8 on the device -> float [0,1] at the resize size."""
+        """[B,H,W,3] uint8 on the device -> float [0,1] at the resize size,
+        then the bilateral denoise (d 9, sigmas 75) and the per-image CLAHE
+        contrast step where the config asks for them."""
+        pre = self.config.processing.preprocessing
         x = imops.to_float(images)
-        resize = self.config.processing.preprocessing.resize
-        if resize is not None and tuple(x.shape[1:3]) != tuple(resize):
-            x = imops.resize_bilinear(x, tuple(resize))
+        if pre.resize is not None and tuple(x.shape[1:3]) != tuple(pre.resize):
+            x = imops.resize_bilinear(x, tuple(pre.resize))
+        if pre.denoise:
+            x = imops.bilateral_filter(x, d=9, sigma_color=75.0, sigma_space=75.0)
+        if pre.enhance_contrast:
+            x = imops.enhance_contrast_rgb(x)
         return x
 
     @staticmethod

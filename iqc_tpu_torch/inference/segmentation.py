@@ -1,27 +1,97 @@
-"""Host-side assembly of the segmentation part of the result: per-region
-records with full-resolution masks, contours and area statistics, from the
-ROI-grid masks and statistics of the full forward.
+"""Defect segmentation of detected boxes: the standalone entry point
+(``segment_defects`` for one image, ``segment_batch`` for a batch, all of
+whose boxes go to the device as one ROI batch), and the host-side assembly
+of the segmentation part of a result: per-region records with
+full-resolution masks, contours and area statistics, from ROI-grid masks
+and statistics (also those of the full forward).
 """
 
 from __future__ import annotations
 
+import importlib
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from iqc_tpu_torch.config import SystemConfig
-from iqc_tpu_torch.ops.segmentation import SegmentationOutputs
+from iqc_tpu_torch.ops import image as imops
+from iqc_tpu_torch.ops.segmentation import SegmentationOutputs, segment_detections
 
 METHOD_NAMES = ("threshold", "adaptive", "watershed", "region_growing")
+# unknown classes get the threshold method: class id 3 (discoloration) carries it
+UNKNOWN_CLASS_ID = 3
 
 
 class ImageSegmentator:
-    """Result assembly for the segmentation part of a request."""
+    """Segments up to ``capacity`` boxes an image on ``roi_size``^2 ROI grids,
+    on ``device``, and assembles the result records."""
 
-    def __init__(self, config: Optional[SystemConfig] = None):
+    def __init__(self, config: Optional[SystemConfig] = None, capacity: int = 32,
+                 roi_size: int = 128, device="cuda"):
         if isinstance(config, dict):
             config = SystemConfig.from_dict(config)
         self.config = config or SystemConfig()
+        self.capacity = capacity
+        self.roi_size = roi_size
+        self.device = torch.device(device)
+        self.class_names = list(self.config.quality_control.defect_classes)
+
+    @staticmethod
+    def _empty() -> Dict:
+        return {"segmented_regions": [], "masks": [], "contours": [], "area_analysis": {},
+                "total_defect_area": 0, "defect_density": 0.0}
+
+    def _pack(self, batch_detections: List[List[Dict]]):
+        """Detection records -> boxes [B,cap,4], class ids [B,cap] and valid
+        [B,cap] (numpy), the first ``capacity`` boxes of each image."""
+        b = len(batch_detections)
+        boxes = np.zeros((b, self.capacity, 4), np.float32)
+        cids = np.zeros((b, self.capacity), np.int32)
+        valid = np.zeros((b, self.capacity), bool)
+        for i, dets in enumerate(batch_detections):
+            for j, det in enumerate(dets[:self.capacity]):
+                bb = det["bbox"]
+                boxes[i, j] = (bb["x1"], bb["y1"], bb["x2"], bb["y2"])
+                cls = det.get("class", "")
+                cids[i, j] = (self.class_names.index(cls) if cls in self.class_names
+                              else UNKNOWN_CLASS_ID)
+                valid[i, j] = True
+        return boxes, cids, valid
+
+    def _segment(self, images: np.ndarray, boxes, cids, valid):
+        """[B,H,W,3] images and packed boxes -> host masks [B,cap,R,R] and
+        stats [B,cap,5] (area, perimeter, compactness, confidence, method)."""
+        up = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
+        with torch.inference_mode():
+            out = segment_detections(imops.to_float(up(images)), up(boxes), up(cids),
+                                     up(valid), roi_size=self.roi_size)
+            stats = torch.stack([out.area, out.perimeter, out.compactness, out.confidence,
+                                 out.method.to(torch.float32)], dim=-1)
+            return out.masks.cpu().numpy(), stats.cpu().numpy()
+
+    def segment_defects(self, image: np.ndarray, detections: List[Dict]) -> Dict:
+        """Segment the detections (records with a pixel ``bbox`` and a
+        ``class``) of one [H,W,3] image."""
+        if not detections:
+            return self._empty()
+        boxes, cids, valid = self._pack([detections])
+        masks, stats = self._segment(np.asarray(image)[None], boxes, cids, valid)
+        return self._assemble_result(detections, self._unpack(masks[0], stats[0]), boxes[0],
+                                     image.shape[:2])
+
+    def segment_batch(self, images: np.ndarray, batch_detections: List[List[Dict]]) -> List[Dict]:
+        """Segment the detections of each image of [B,H,W,3] ``images``: the
+        B x capacity ROIs as one batch on the device."""
+        if not batch_detections:
+            return []
+        boxes, cids, valid = self._pack(batch_detections)
+        if not valid.any():
+            return [self._empty() for _ in batch_detections]
+        masks, stats = self._segment(np.asarray(images), boxes, cids, valid)
+        h, w = images.shape[1:3]
+        return [self._assemble_result(dets, self._unpack(masks[i], stats[i]), boxes[i], (h, w))
+                for i, dets in enumerate(batch_detections)]
 
     @staticmethod
     def _unpack(masks: np.ndarray, stats: np.ndarray) -> SegmentationOutputs:
@@ -36,10 +106,7 @@ class ImageSegmentator:
     def _assemble_result(self, detections, out_np, boxes, shape) -> Dict:
         """Shared host-side schema assembly for one image."""
         h, w = shape
-        results = {
-            "segmented_regions": [], "masks": [], "contours": [],
-            "area_analysis": {}, "total_defect_area": 0, "defect_density": 0.0,
-        }
+        results = self._empty()
         total_image_area = float(h * w)
         total = 0.0
         for i in range(min(len(detections), len(out_np.masks), len(boxes))):
@@ -135,3 +202,23 @@ class ImageSegmentator:
                 "large_defects": sum(1 for a in areas if a >= 1000),
             },
         }
+
+    def visualize_segmentation(self, image: np.ndarray, segmentation_results: Dict,
+                               save_path: Optional[str] = None) -> np.ndarray:
+        """The result's full-resolution masks blended over ``image``; saved
+        to ``save_path`` when given."""
+        from iqc_tpu_torch.inference.visualize import draw_segmentation
+
+        vis = draw_segmentation(image, segmentation_results.get("masks", []))
+        if save_path:
+            self.save_image(vis, save_path)
+        return vis
+
+    @staticmethod
+    def save_image(image: np.ndarray, path: str) -> None:
+        """Write ``image`` with PIL; without PIL, raise RuntimeError."""
+        try:
+            Image = importlib.import_module("PIL.Image")
+        except ImportError as e:
+            raise RuntimeError("saving an image needs PIL, which is not installed") from e
+        Image.fromarray(np.asarray(image).astype(np.uint8)).save(path)

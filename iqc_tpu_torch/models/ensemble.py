@@ -17,41 +17,41 @@ and segmentation statistics, and fetched to the host in one go.
 
 Serving precision (``edge.precision``): ``int8`` replaces both networks by
 their int8 forwards (``Int8YOLO``: the int8-resident walk of
-``yolo_int8_stream``; ``Int8ResNet``: ``resnet_int8_stream`` or the v1
-``resnet_int8`` walk), quantized from the float weights with activation
-scales calibrated at construction, on the predictor's device, from
-procedurally rendered defect frames and crops. ``fp32`` and ``bf16`` serve
-the float networks in ``model.compute_dtype``.
+``yolo_int8_stream`` or the v1 walk of ``yolo_int8``; ``Int8ResNet``:
+``resnet_int8_stream`` or the v1 ``resnet_int8`` walk), quantized from the
+float weights with activation scales calibrated at construction, on the
+predictor's device, from procedurally rendered defect frames and crops.
+``edge.yolo_int8: false`` keeps the float YOLOv8 in ``model.compute_dtype``
+with int8-stored, dequantized weights (``optimizer``). ``fp32`` and
+``bf16`` serve the float networks in ``model.compute_dtype``.
+``edge.sparsity`` > 0 prunes both networks' weights by magnitude first.
 """
 
 from __future__ import annotations
 
-import logging
 import os
 import threading
 import time
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from iqc_tpu_torch.config import SystemConfig, resolve_path
+from iqc_tpu_torch.config import SystemConfig
 from iqc_tpu_torch.data.resize import resize_bicubic
 from iqc_tpu_torch.data.yolo_dataset import SyntheticDefectDataset
-from iqc_tpu_torch.models import resnet_int8, resnet_int8_stream, yolo_int8_stream
-from iqc_tpu_torch.models.layers import init_random
+from iqc_tpu_torch.models import resnet_int8, resnet_int8_stream, yolo_int8, yolo_int8_stream
+from iqc_tpu_torch.models.layers import exact_float32
+from iqc_tpu_torch.models.optimizer import EngineOptimizer, prune_magnitude
 from iqc_tpu_torch.models.resnet import ResNet50, classifier_severity, preprocess_for_classifier
-from iqc_tpu_torch.models.yolo import STRIDES, YOLOv8, detection_severity, feature_shapes
+from iqc_tpu_torch.models.yolo import (SEVERITY_NAMES, STRIDES, YOLOv8, detection_severity,
+                                       feature_shapes)
 from iqc_tpu_torch.ops import image as imops
 from iqc_tpu_torch.ops.boxes import box_area
 from iqc_tpu_torch.ops.nms import Detections, decode_and_nms, make_anchors
 from iqc_tpu_torch.ops.segmentation import CLASS_TO_METHOD, segment_rois, table_lookup
-from iqc_tpu_torch.weights import load_into, read_checkpoint, to_flax
-
-logger = logging.getLogger(__name__)
-
-SEVERITY_NAMES = ("minor", "major", "critical")
+from iqc_tpu_torch.weights import load_into, load_or_init, to_flax
 
 
 class EnsembleOutputs(NamedTuple):
@@ -75,17 +75,22 @@ class EnsembleOutputs(NamedTuple):
 
 
 class Int8YOLO(nn.Module):
-    """The int8-resident YOLOv8 (``yolo_int8_stream``) as the full forward's
-    detector: NHWC float images -> float32 (dist, cls) logits."""
+    """The int8 YOLOv8 as the full forward's detector: the int8-resident
+    walk (``yolo_int8_stream``) or, with ``stream=False``, the v1 walk
+    (``yolo_int8``). NHWC float images -> float32 (dist, cls) logits."""
 
-    def __init__(self, q: Dict, scales, reg_max: int, num_classes: int, device):
+    def __init__(self, q: Dict, scales, reg_max: int, num_classes: int, device,
+                 stream: bool = True):
         super().__init__()
-        self.reg_max, self.num_classes = reg_max, num_classes
-        self.q = yolo_int8_stream.device_tree(q, device)
+        self.reg_max, self.num_classes, self.stream = reg_max, num_classes, stream
+        walk = yolo_int8_stream if stream else yolo_int8
+        self.q = walk.device_tree(q, device)
         self.scales = torch.as_tensor(np.array(scales, np.float32), device=device)
 
     def forward(self, x: torch.Tensor):
-        return yolo_int8_stream.apply(self.q, x, self.scales, self.reg_max, self.num_classes)
+        if self.stream:
+            return yolo_int8_stream.apply(self.q, x, self.scales, self.reg_max, self.num_classes)
+        return yolo_int8.apply(self.q, x, self.reg_max, self.num_classes, act_scales=self.scales)
 
 
 class Int8ResNet(nn.Module):
@@ -341,12 +346,7 @@ class EnsemblePredictor:
             cfg = SystemConfig.from_dict(cfg)
         self.config = cfg
         self.device = torch.device(device)
-        if self.device.type == "cuda":
-            # float32 convolutions and matmuls in full float32 (cuDNN would
-            # take TF32 by default), so that the card's results compare with
-            # the CPU's and the JAX reference's
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+        exact_float32(self.device)
         m = cfg.model
         self.class_names = list(cfg.quality_control.defect_classes)
         self.ensemble_weights = dict(m.ensemble_weights)
@@ -364,12 +364,23 @@ class EnsemblePredictor:
                                dtype=self.compute_dtype)
         # "checkpoint" or "initialized" per network, surfaced by get_model_info
         self.weights_source: Dict[str, str] = {
-            "yolo": self._init_or_load(self.yolo, yolo_weights or m.yolo_weights, seed=0),
-            "resnet": self._init_or_load(self.resnet, resnet_weights or m.resnet_weights, seed=1),
+            "yolo": load_or_init(self.yolo, yolo_weights or m.yolo_weights, seed=0),
+            "resnet": load_or_init(self.resnet, resnet_weights or m.resnet_weights, seed=1),
         }
         self.precision_report = None
         self.pruning_report = None
+        if cfg.edge.sparsity > 0.0:
+            # magnitude pruning on the Flax-layout weights, before any
+            # precision lowering
+            reports = {}
+            for name in ("yolo", "resnet"):
+                module = getattr(self, name)
+                pruned, reports[name] = prune_magnitude(
+                    to_flax(module), cfg.edge.sparsity, cfg.edge.structured_pruning)
+                load_into(module, pruned)
+            self.pruning_report = reports
         # the int8 networks' state as numpy, {"q": tree, "scales": [n]}
+        # (no YOLO state under weight-only int8 storage)
         self.yolo_vars = self.resnet_vars = None
         self.calibration_seconds = None
         if cfg.edge.precision == "int8":
@@ -394,32 +405,53 @@ class EnsemblePredictor:
 
     def _setup_int8(self, state: Optional[Dict]) -> None:
         """Quantize both networks and calibrate their activation scales on
-        this predictor's device: YOLO first (fold, calibrate on the folded
-        float forward, quantize with the scales folded into the weights),
-        then ResNet (quantize, calibrate on the v1 walk). A given ``state``
-        is installed instead."""
+        this predictor's device. YOLO, by ``edge.yolo_int8`` and the stream
+        flag: the int8-resident walk (fold, calibrate on the folded float
+        forward, quantize with the scales folded into the weights), the v1
+        walk (quantize, calibrate on the v1 walk), or weight-only int8
+        storage (the float network with dequantized weights, nothing to
+        calibrate). Then ResNet (quantize, calibrate on the v1 walk). A
+        given ``state`` is installed instead of calibrating; it holds no
+        YOLO state under weight-only storage."""
         cfg, m = self.config, self.config.model
-        if not _env_flag("IQC_YOLO_INT8_STREAM", cfg.edge.yolo_int8_stream):
-            raise ValueError("the v1 int8 YOLO walk (IQC_YOLO_INT8_STREAM=0) is not ported")
+        if not cfg.edge.yolo_int8:
+            self._yolo_walk = "weight-only"
+        elif _env_flag("IQC_YOLO_INT8_STREAM", cfg.edge.yolo_int8_stream):
+            self._yolo_walk = "stream"
+        else:
+            self._yolo_walk = "v1"
         self._resnet_stream = _env_flag("IQC_RESNET_INT8_STREAM", cfg.edge.resnet_int8_stream)
         yolo_fp = to_flax(self.yolo)
         resnet_fp = to_flax(self.resnet)
         self._fp_bytes = {"yolo": resnet_int8.tree_size_bytes(yolo_fp),
                           "resnet": resnet_int8.tree_size_bytes(resnet_fp)}
+        self._yolo_storage_report = None
+        if self._yolo_walk == "weight-only":
+            dequantized, self._yolo_storage_report = \
+                EngineOptimizer(precision="int8").optimize_variables(yolo_fp)
+            load_into(self.yolo, dequantized)
         if state is not None:
-            self.install_yolo_int8(state["yolo"]["q"], state["yolo"]["scales"])
+            if state.get("yolo") is not None:
+                self.install_yolo_int8(state["yolo"]["q"], state["yolo"]["scales"])
             self.install_resnet_int8(state["resnet"]["q"], state["resnet"]["scales"])
             return
         t0 = time.perf_counter()
-        fp_tree = yolo_int8_stream.device_tree(
-            yolo_int8_stream.fold_fp(yolo_fp, stem_mode=m.yolo_stem), self.device)
+        n_cls = len(self.class_names)
         batches = (torch.from_numpy(b).to(self.device) for b in self._yolo_calibration_batches())
-        yscales = yolo_int8_stream.calibrate(fp_tree, batches, reg_max=m.reg_max,
-                                             num_classes=len(self.class_names))
-        yscales = yscales.cpu().numpy()
-        del fp_tree
-        yq = yolo_int8_stream.quantize(yolo_fp, yscales, stem_mode=m.yolo_stem,
-                                       reg_max=m.reg_max, num_classes=len(self.class_names))
+        if self._yolo_walk == "stream":
+            fp_tree = yolo_int8_stream.device_tree(
+                yolo_int8_stream.fold_fp(yolo_fp, stem_mode=m.yolo_stem), self.device)
+            yscales = yolo_int8_stream.calibrate(fp_tree, batches, reg_max=m.reg_max,
+                                                 num_classes=n_cls).cpu().numpy()
+            del fp_tree
+            yq = yolo_int8_stream.quantize(yolo_fp, yscales, stem_mode=m.yolo_stem,
+                                           reg_max=m.reg_max, num_classes=n_cls)
+        elif self._yolo_walk == "v1":
+            yq = yolo_int8.quantize_yolo(yolo_fp, stem_mode=m.yolo_stem)
+            dev_q = yolo_int8.device_tree(yq, self.device)
+            yscales = yolo_int8.calibrate_activation_scales(
+                dev_q, batches, reg_max=m.reg_max, num_classes=n_cls).cpu().numpy()
+            del dev_q
         stages = tuple(m.resnet_stages)
         rq = resnet_int8.quantize_resnet(resnet_fp, stages)
         dev_q = resnet_int8.device_tree(rq, self.device)
@@ -427,21 +459,30 @@ class EnsemblePredictor:
                    for b in self._calibration_batches(m.classifier_input))
         rscales = resnet_int8.calibrate_activation_scales(dev_q, batches, stages).cpu().numpy()
         del dev_q
-        self.install_yolo_int8(yq, yscales)
+        if self._yolo_walk != "weight-only":
+            self.install_yolo_int8(yq, yscales)
         self.install_resnet_int8(rq, rscales)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.calibration_seconds = time.perf_counter() - t0
 
     def install_yolo_int8(self, q: Dict, scales) -> None:
-        """Serve the int8-resident YOLO of tree ``q`` and scales ``scales``
-        (numpy; ``yolo_int8_stream.quantize`` of either package)."""
+        """Serve the int8 YOLO of tree ``q`` and scales ``scales`` (numpy,
+        of either package) on the walk the config selects: a tree of
+        ``yolo_int8_stream.quantize`` for the int8-resident walk, of
+        ``yolo_int8.quantize_yolo`` for the v1 walk."""
         m = self.config.model
-        if len(scales) != yolo_int8_stream.n_tensors(m.depth_mult, m.yolo_stem):
-            raise ValueError(f"{len(scales)} YOLO scales for "
-                             f"{yolo_int8_stream.n_tensors(m.depth_mult, m.yolo_stem)} tensors")
+        if self._yolo_walk == "weight-only":
+            raise ValueError("edge.yolo_int8 false serves the float YOLO: no int8 state")
+        stream = self._yolo_walk == "stream"
+        n = (yolo_int8_stream.n_tensors(m.depth_mult, m.yolo_stem) if stream
+             else yolo_int8.n_convs(m.depth_mult, m.yolo_stem))
+        if len(scales) != n:
+            raise ValueError(f"{len(scales)} YOLO scales for the {n} slots of the "
+                             f"{self._yolo_walk} walk")
         self.yolo_vars = {"q": q, "scales": np.asarray(scales, np.float32)}
-        self.yolo = Int8YOLO(q, scales, m.reg_max, len(self.class_names), self.device)
+        self.yolo = Int8YOLO(q, scales, m.reg_max, len(self.class_names), self.device,
+                             stream=stream)
         self._report()
 
     def install_resnet_int8(self, q: Dict, scales) -> None:
@@ -455,24 +496,29 @@ class EnsemblePredictor:
         self._report()
 
     def _report(self) -> None:
-        if self.yolo_vars is None or self.resnet_vars is None:
+        if self.resnet_vars is None or (self.yolo_vars is None
+                                        and self._yolo_walk != "weight-only"):
             return
         fwd = getattr(self, "_forward_full", None)
         if fwd is not None:
             fwd.yolo, fwd.resnet = self.yolo, self.resnet
-        yq_bytes = resnet_int8.tree_size_bytes(self.yolo_vars["q"])
         q_bytes = resnet_int8.tree_size_bytes(self.resnet_vars["q"])
-        resnet_mode = ("true-int8 MXU, int8-resident activations (streaming v2)"
-                       if self._resnet_stream else
-                       "true-int8 MXU (static calibrated activations)")
+        v1_mode = "true-int8 MXU (static calibrated activations)"
+        stream_mode = "true-int8 MXU, int8-resident activations (streaming v2)"
+        if self._yolo_walk == "weight-only":
+            yolo_mode = "weight-only int8 storage"
+            yolo_reduction = self._yolo_storage_report["size_reduction_percent"]
+        else:
+            yolo_mode = stream_mode if self._yolo_walk == "stream" else v1_mode
+            yq_bytes = resnet_int8.tree_size_bytes(self.yolo_vars["q"])
+            yolo_reduction = 100.0 * (1 - yq_bytes / max(self._fp_bytes["yolo"], 1))
         self.precision_report = {
             "precision": "int8",
-            "resnet": resnet_mode,
-            "yolo": "true-int8 MXU, int8-resident activations (streaming v2)",
+            "resnet": stream_mode if self._resnet_stream else v1_mode,
+            "yolo": yolo_mode,
             "resnet_size_reduction_percent": round(
                 100.0 * (1 - q_bytes / max(self._fp_bytes["resnet"], 1)), 1),
-            "yolo_size_reduction_percent": round(
-                100.0 * (1 - yq_bytes / max(self._fp_bytes["yolo"], 1)), 1),
+            "yolo_size_reduction_percent": round(yolo_reduction, 1),
         }
 
     def _calibration_batches(self, ci: int, n: int = 24):
@@ -508,25 +554,6 @@ class EnsemblePredictor:
         frames = [np.asarray(resize_bicubic(ds.load(i)[0], (w, h)), np.float32)
                   for i in range(n)]
         yield np.stack(frames) / 255.0
-
-    @staticmethod
-    def _init_or_load(module: nn.Module, path: str, seed: int) -> str:
-        """Fill ``module`` from the Flax checkpoint at ``path`` (relative paths
-        from the repository root) and return "checkpoint". A missing file, or
-        no path, leaves seeded random weights and returns "initialized"; a
-        malformed or mismatched file raises."""
-        init_random(module, seed)
-        if not path:
-            return "initialized"
-        full = resolve_path(path)
-        if not os.path.exists(full):
-            logger.warning("checkpoint %s not found; using initialized weights", full)
-            return "initialized"
-        try:
-            load_into(module, read_checkpoint(full))
-        except ValueError as e:
-            raise ValueError(f"corrupt or incompatible checkpoint {full!r}: {e}") from e
-        return "checkpoint"
 
     def _args(self):
         """(conf_t, iou_t, w_yolo, w_resnet, sev_rules) for the forward, with
@@ -702,4 +729,95 @@ class EnsemblePredictor:
             "precision_report": self.precision_report,
             "pruning_report": self.pruning_report,
             "device": str(self.device),
+        }
+
+    def visualize_ensemble_results(self, image: np.ndarray, results: Dict) -> np.ndarray:
+        """Boxes of a result drawn on ``image``, with its pass/fail strip."""
+        from iqc_tpu_torch.inference.visualize import draw_detections, draw_quality_overlay
+
+        vis = draw_detections(image, results.get("detections", []))
+        qa = results.get("quality_assessment", {})
+        return draw_quality_overlay(vis, qa) if qa else vis
+
+
+class EnsembleOptimizer:
+    """Grid search of the fusion weights over labelled validation images.
+    The weights are read by the forward on every call, so each trial reuses
+    the predictor as it is."""
+
+    def __init__(self, ensemble_predictor: EnsemblePredictor):
+        self.ensemble = ensemble_predictor
+        self.performance_history: List[Dict] = []
+
+    def optimize_weights(self, validation_data: List[Tuple[np.ndarray, Dict]],
+                         steps: int = 9) -> Dict:
+        """Try yolo weights k / (steps + 1), k = 1..steps, keep the best
+        score (the first of equal scores) and leave it set."""
+        best = {"yolo": 0.6, "resnet": 0.4}
+        best_score = -1.0
+        original = dict(self.ensemble.ensemble_weights)
+        for k in range(1, steps + 1):
+            wy = k / (steps + 1)
+            self.ensemble.update_ensemble_weights(wy, 1.0 - wy)
+            score = self._evaluate(validation_data)
+            self.performance_history.append(
+                {"weights": dict(self.ensemble.ensemble_weights), "score": score})
+            if score > best_score:
+                best_score = score
+                best = dict(self.ensemble.ensemble_weights)
+        with self.ensemble.params_lock:
+            self.ensemble.ensemble_weights = best if best_score >= 0 else original
+        return {"best_weights": best, "best_score": best_score,
+                "history": self.performance_history}
+
+    def _evaluate(self, validation_data) -> float:
+        """Mean per-image score over the label's components -- ``pass`` /
+        ``PASS`` (pass/fail agreement), ``class`` (name or id: the global
+        class), ``defect_count`` (1 / (1 + |error|)) -- plus 0.01 x the mean
+        confidence, signed by whether the image scored at least 0.5. One
+        ``batch_predict`` per image shape."""
+        if not validation_data:
+            return 0.0
+        names = self.ensemble.class_names
+        imgs = [np.asarray(img) for img, _ in validation_data]
+        by_shape: Dict[Tuple[int, ...], List[int]] = {}
+        for idx, img in enumerate(imgs):
+            by_shape.setdefault(img.shape, []).append(idx)
+        results: List[Optional[Dict]] = [None] * len(imgs)
+        for idxs in by_shape.values():
+            for r, idx in zip(self.ensemble.batch_predict([imgs[i] for i in idxs]), idxs):
+                results[idx] = r
+        scores, calib = [], []
+        for result, (_, label) in zip(results, validation_data):
+            parts = []
+            if "pass" in label or "PASS" in label:
+                want = bool(label.get("pass", label.get("PASS")))
+                parts.append(float((result["quality_assessment"]["pass_fail"] == "PASS") == want))
+            if "class" in label:
+                want_cls = label["class"]
+                if isinstance(want_cls, int) and 0 <= want_cls < len(names):
+                    want_cls = names[want_cls]
+                parts.append(float(result["global_classification"]["predicted_class"]
+                                   == want_cls))
+            if "defect_count" in label:
+                got_n = len(result.get("detections", []))
+                parts.append(1.0 / (1.0 + abs(got_n - int(label["defect_count"]))))
+            s = float(np.mean(parts)) if parts else 0.5
+            conf = float(result.get("ensemble_confidence", 0.0))
+            scores.append(s)
+            calib.append(conf if s >= 0.5 else -conf)
+        return float(np.mean(scores)) + 0.01 * float(np.mean(calib))
+
+    def benchmark_performance(self, test_images: List[np.ndarray]) -> Dict:
+        """Wall time of ``predict`` over the images, one by one."""
+        t0 = time.perf_counter()
+        results = [self.ensemble.predict(img) for img in test_images]
+        total = time.perf_counter() - t0
+        n = max(len(test_images), 1)
+        return {
+            "total_images": len(test_images),
+            "total_time_seconds": total,
+            "average_inference_time_ms": total / n * 1000.0,
+            "throughput_images_per_second": n / total if total > 0 else 0.0,
+            "results": results,
         }

@@ -75,3 +75,12 @@ def init_random(module: nn.Module, seed: int) -> None:
                 m.weight.copy_(w)
                 if m.bias is not None:
                     m.bias.zero_()
+
+
+def exact_float32(device) -> None:
+    """On a CUDA device, float32 convolutions and matrix products in full
+    float32 (cuDNN and cuBLAS would take TF32 by default), so that the
+    card's results compare with the CPU's and the JAX reference's."""
+    if torch.device(device).type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False

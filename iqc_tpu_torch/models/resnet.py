@@ -15,13 +15,16 @@ pooled features and the head stay float32.
 
 from __future__ import annotations
 
-from typing import Sequence
+import time
+from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from iqc_tpu_torch.models.layers import BatchNorm, conv2d
+from iqc_tpu_torch.models.layers import BatchNorm, conv2d, exact_float32
+from iqc_tpu_torch.models.yolo import SEVERITY_NAMES
 from iqc_tpu_torch.ops import image as imops
 
 
@@ -88,14 +91,17 @@ class ResNet50(nn.Module):
         self.head_dense1 = nn.Linear(cin, head_hidden)
         self.head_dense2 = nn.Linear(head_hidden, num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: NHWC float [B,H,W,3] -> logits [B,C]."""
+    def forward(self, x: torch.Tensor, return_features: bool = False) -> torch.Tensor:
+        """x: NHWC float [B,H,W,3] -> logits [B,C], or with
+        ``return_features`` the pooled float32 features [B,2048]."""
         x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         x = F.relu(self.stem_bn(conv2d(self.stem_conv, x)))
         x = F.max_pool2d(x, 3, 2, 1)
         for name in self.blocks:
             x = getattr(self, name)(x)
         features = torch.mean(x, dim=(2, 3)).to(torch.float32)
+        if return_features:
+            return features
         return self.head_dense2(F.relu(self.head_dense1(features)))
 
 
@@ -129,3 +135,91 @@ def preprocess_for_classifier(images: torch.Tensor, size: int) -> torch.Tensor:
     if tuple(x.shape[-3:-1]) != (size, size):
         x = imops.resize_bilinear(x, (size, size))
     return imops.normalize_imagenet(x)
+
+
+class ResNetClassifier:
+    """Whole-image defect classifier: ResNet-50 at 224 px on one device.
+
+    ``predict`` / ``predict_batch`` give the class, its confidence, every
+    class probability and the severity; ``extract_features`` the pooled
+    backbone features. Weights come from the Flax checkpoint at
+    ``model_path``; without one (or where the file is missing) the network
+    keeps seeded random weights, which ``get_model_info`` reports."""
+
+    INPUT_SIZE = 224
+
+    def __init__(self, model_path: Optional[str] = None, num_classes: int = 5,
+                 class_names: Optional[List[str]] = None, dtype: torch.dtype = torch.float32,
+                 seed: int = 0, device="cuda"):
+        from iqc_tpu_torch.config import DEFECT_CLASSES
+        from iqc_tpu_torch.weights import load_or_init
+
+        self.model_path = model_path
+        self.num_classes = num_classes
+        self.class_names = list(class_names or DEFECT_CLASSES)[:num_classes]
+        self.device = torch.device(device)
+        exact_float32(self.device)
+        self.module = ResNet50(num_classes=num_classes, dtype=dtype)
+        self.weights_source = load_or_init(self.module, model_path, seed)
+        self.module.to(self.device).eval()
+
+    def _upload(self, images) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(images)).to(self.device)
+
+    def _forward(self, images: torch.Tensor) -> Dict[str, np.ndarray]:
+        with torch.inference_mode():
+            x = preprocess_for_classifier(images, self.INPUT_SIZE)
+            probs = torch.softmax(self.module(x).to(torch.float32), dim=-1)
+            conf = torch.amax(probs, dim=-1)
+            cls = torch.argmax(probs, dim=-1).to(torch.int32)
+            sev = classifier_severity(cls, conf)
+            return {k: v.cpu().numpy() for k, v in
+                    (("probs", probs), ("confidence", conf), ("class_id", cls), ("severity", sev))}
+
+    def _record(self, out: Dict[str, np.ndarray], i: int) -> Dict:
+        return {
+            "predicted_class": self.class_names[int(out["class_id"][i])],
+            "confidence": float(out["confidence"][i]),
+            "class_probabilities": {self.class_names[j]: float(p)
+                                    for j, p in enumerate(out["probs"][i])},
+            "severity": SEVERITY_NAMES[int(out["severity"][i])],
+        }
+
+    def predict(self, image: np.ndarray) -> Dict:
+        """Classification of one [H,W,3] image (uint8 or float in [0,1])."""
+        t0 = time.perf_counter()
+        out = self._forward(self._upload(image)[None])
+        result = self._record(out, 0)
+        result["inference_time_ms"] = (time.perf_counter() - t0) * 1000
+        return result
+
+    def predict_batch(self, images: List[np.ndarray]) -> List[Dict]:
+        """Classification of equally sized images as one batch."""
+        t0 = time.perf_counter()
+        batch = torch.stack([imops.to_float(self._upload(im)) for im in images])
+        out = self._forward(batch)
+        total = (time.perf_counter() - t0) * 1000
+        results = []
+        for i in range(len(images)):
+            r = self._record(out, i)
+            r.update({"batch_index": i, "batch_inference_time_ms": total,
+                      "avg_time_per_image_ms": total / len(images)})
+            results.append(r)
+        return results
+
+    def extract_features(self, image: np.ndarray) -> np.ndarray:
+        """The 2048 pooled backbone features of one image."""
+        with torch.inference_mode():
+            x = preprocess_for_classifier(self._upload(image)[None], self.INPUT_SIZE)
+            return self.module(x, return_features=True)[0].cpu().numpy()
+
+    def get_model_info(self) -> Dict:
+        return {
+            "model_path": self.model_path,
+            "device": str(self.device),
+            "num_classes": self.num_classes,
+            "class_names": self.class_names,
+            "model_loaded": True,
+            "weights_source": self.weights_source,
+            "input_size": (self.INPUT_SIZE, self.INPUT_SIZE),
+        }

@@ -189,10 +189,13 @@ def calibrate_activation_scales(q: Dict, sample_batches,
 
 
 def tree_size_bytes(q) -> int:
-    """Bytes of the leaves of a nested dict / list of numpy arrays."""
+    """Bytes of the leaves of a nested dict / list of numpy arrays, scalars
+    or torch tensors."""
     if isinstance(q, dict):
         return sum(tree_size_bytes(v) for v in q.values())
     if isinstance(q, (list, tuple)):
         return sum(tree_size_bytes(v) for v in q)
+    if isinstance(q, torch.Tensor):
+        return q.numel() * q.element_size()
     a = np.asarray(q)
     return int(a.size) * a.dtype.itemsize

@@ -14,13 +14,15 @@ the logits are then bfloat16.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from iqc_tpu_torch.models.layers import BatchNorm, conv2d, silu
+from iqc_tpu_torch.models.layers import BatchNorm, conv2d, exact_float32, silu
 
 STRIDES = (8, 16, 32)
 
@@ -191,6 +193,7 @@ def feature_shapes(input_size: Tuple[int, int]) -> List[Tuple[int, int]]:
 
 
 SEV_MINOR, SEV_MAJOR, SEV_CRITICAL = 0, 1, 2
+SEVERITY_NAMES = ("minor", "major", "critical")
 
 
 def detection_severity(confidences: torch.Tensor, areas: torch.Tensor,
@@ -211,3 +214,171 @@ def detection_severity(confidences: torch.Tensor, areas: torch.Tensor,
     sev = torch.where((confidences > crit_c) | (norm_area > crit_a),
                       torch.full_like(sev, SEV_CRITICAL), sev)
     return sev
+
+
+class YOLODetector:
+    """The detector alone on one device: YOLOv8 -> DFL decode and
+    class-aware NMS (the suppression kernel), with merge voting by default
+    -> severity by confidence and area.
+
+    ``predict`` / ``batch_predict`` resize off-size inputs to ``input_size``
+    and give boxes in the input image's pixels. Thresholds are read on every
+    call: ``update_thresholds`` rebuilds nothing. ``class_conf_thresholds``
+    gives each class its own confidence floor; ``severity_rules`` the [2,2]
+    tier thresholds [[major conf, major area ratio], [critical conf,
+    critical area ratio]] (None: 0.8/0.05 and 0.9/0.1). Weights come from
+    the Flax checkpoint at ``model_path``; without one (or where the file is
+    missing) the network keeps seeded random weights, which
+    ``get_model_info`` reports."""
+
+    def __init__(self, model_path: Optional[str] = None, confidence_threshold: float = 0.7,
+                 nms_threshold: float = 0.5, num_classes: int = 5,
+                 input_size: Tuple[int, int] = (640, 640), width_mult: float = 0.25,
+                 depth_mult: float = 0.334, max_detections: int = 300,
+                 class_names: Optional[List[str]] = None, dtype: torch.dtype = torch.float32,
+                 seed: int = 0, stem_mode: str = "conv", box_voting: bool = True,
+                 class_conf_thresholds: Optional[Sequence[float]] = None,
+                 severity_rules: Optional[Sequence[Sequence[float]]] = None, device="cuda"):
+        from iqc_tpu_torch.config import DEFECT_CLASSES
+        from iqc_tpu_torch.ops.nms import make_anchors
+        from iqc_tpu_torch.weights import load_or_init
+
+        self.model_path = model_path
+        self.box_voting = bool(box_voting)
+        self.confidence_threshold = confidence_threshold
+        self.class_conf_thresholds = (None if class_conf_thresholds is None
+                                      else [float(v) for v in class_conf_thresholds])
+        self.nms_threshold = nms_threshold
+        self.input_size = tuple(input_size)
+        self.max_detections = max_detections
+        self.class_names = list(class_names or DEFECT_CLASSES)[:num_classes]
+        self.device = torch.device(device)
+        exact_float32(self.device)
+        self._sev_rules = (None if severity_rules is None else
+                           torch.tensor(severity_rules, dtype=torch.float32, device=self.device))
+        self.module = YOLOv8(num_classes=num_classes, width_mult=width_mult,
+                             depth_mult=depth_mult, stem_mode=stem_mode, dtype=dtype)
+        self.weights_source = load_or_init(self.module, model_path, seed)
+        self.module.to(self.device).eval()
+        self._anchors, self._strides = make_anchors(feature_shapes(self.input_size), STRIDES,
+                                                    device=self.device)
+
+    def _conf_value(self):
+        """A [C] tensor of per-class floors where they are set, else the scalar."""
+        if self.class_conf_thresholds is not None:
+            return torch.tensor(self.class_conf_thresholds, dtype=torch.float32,
+                                device=self.device)
+        return float(self.confidence_threshold)
+
+    def _forward(self, images: torch.Tensor):
+        """[B,H,W,3] uint8 or float -> host (boxes, scores, classes, valid,
+        severities) at the model input's resolution."""
+        from iqc_tpu_torch.ops import image as imops
+        from iqc_tpu_torch.ops.boxes import box_area
+        from iqc_tpu_torch.ops.nms import decode_and_nms
+
+        with torch.inference_mode():
+            x = imops.to_float(images)
+            if tuple(x.shape[1:3]) != self.input_size:
+                x = imops.resize_bilinear(x, self.input_size)
+            dist, cls = self.module(x)
+            det = decode_and_nms(dist, cls, self._anchors, self._strides,
+                                 reg_max=self.module.reg_max,
+                                 max_detections=self.max_detections,
+                                 iou_threshold=float(self.nms_threshold),
+                                 score_threshold=self._conf_value(),
+                                 box_voting=self.box_voting)
+            sev = detection_severity(det.scores, box_area(det.boxes), self._sev_rules)
+            return tuple(t.cpu().numpy() for t in (det.boxes, det.scores, det.classes,
+                                                   det.valid, sev))
+
+    def _upload(self, images) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(images)).to(self.device)
+
+    def _scale(self, shape) -> Tuple[float, float]:
+        return shape[0] / self.input_size[0], shape[1] / self.input_size[1]
+
+    def predict(self, image: np.ndarray) -> Dict:
+        """Detections of one [H,W,3] image."""
+        t0 = time.perf_counter()
+        img = np.asarray(image)
+        boxes, scores, classes, valid, sev = self._forward(self._upload(img)[None])
+        dt = (time.perf_counter() - t0) * 1000
+        dets = self.parse_detections(boxes[0], scores[0], classes[0], valid[0], sev[0],
+                                     scale=self._scale(img.shape))
+        return {"detections": dets, "inference_time_ms": dt, "image_shape": img.shape[:2],
+                "total_detections": len(dets)}
+
+    def batch_predict(self, images: List[np.ndarray]) -> List[Dict]:
+        """Detections of equally sized images, as one batch."""
+        t0 = time.perf_counter()
+        boxes, scores, classes, valid, sev = self._forward(self._upload(np.stack(images)))
+        dt = (time.perf_counter() - t0) * 1000
+        results = []
+        for i, image in enumerate(images):
+            dets = self.parse_detections(boxes[i], scores[i], classes[i], valid[i], sev[i],
+                                         scale=self._scale(image.shape))
+            results.append({"detections": dets, "inference_time_ms": dt / len(images),
+                            "image_shape": image.shape[:2], "total_detections": len(dets),
+                            "batch_index": i})
+        return results
+
+    def parse_detections(self, boxes, scores, classes, valid, severities,
+                         scale=(1.0, 1.0)) -> List[Dict]:
+        """Fixed-capacity arrays (survivors first) -> detection records, the
+        boxes scaled by (sy, sx) and truncated to whole pixels."""
+        out = []
+        sy, sx = scale
+        for i in range(len(valid)):
+            if not valid[i]:
+                break
+            x1, y1, x2, y2 = boxes[i]
+            x1, x2 = int(x1 * sx), int(x2 * sx)
+            y1, y2 = int(y1 * sy), int(y2 * sy)
+            cid = int(classes[i])
+            out.append({
+                "id": len(out),
+                "class": (self.class_names[cid] if 0 <= cid < len(self.class_names)
+                          else f"class_{cid}"),
+                "confidence": float(scores[i]),
+                "bbox": {"x1": x1, "y1": y1, "x2": x2, "y2": y2,
+                         "width": x2 - x1, "height": y2 - y1,
+                         "center_x": (x1 + x2) / 2, "center_y": (y1 + y2) / 2},
+                "area": (x2 - x1) * (y2 - y1),
+                "severity": SEVERITY_NAMES[int(severities[i])],
+            })
+        return out
+
+    def update_thresholds(self, confidence=None, nms: Optional[float] = None) -> None:
+        """Set the confidence floor (a scalar, a [C] sequence or a
+        {class name: floor} dict) and the NMS IoU threshold."""
+        if confidence is not None:
+            if isinstance(confidence, dict):
+                base = self.confidence_threshold
+                self.class_conf_thresholds = [float(confidence.get(n, base))
+                                              for n in self.class_names]
+            elif isinstance(confidence, (list, tuple)):
+                self.class_conf_thresholds = [float(v) for v in confidence]
+            else:
+                self.confidence_threshold = float(confidence)
+                self.class_conf_thresholds = None
+        if nms is not None:
+            self.nms_threshold = float(nms)
+
+    def visualize_detections(self, image: np.ndarray, detections: List[Dict]) -> np.ndarray:
+        from iqc_tpu_torch.inference.visualize import draw_detections
+
+        return draw_detections(image, detections)
+
+    def get_model_info(self) -> Dict:
+        return {
+            "model_path": self.model_path,
+            "device": str(self.device),
+            "confidence_threshold": self.confidence_threshold,
+            "nms_threshold": self.nms_threshold,
+            "class_names": self.class_names,
+            "model_loaded": True,
+            "weights_source": self.weights_source,
+            "input_size": self.input_size,
+            "max_detections": self.max_detections,
+        }

@@ -74,6 +74,105 @@ def gaussian_blur(image: torch.Tensor, sigma: float = 1.0, radius: int = None) -
     return x.reshape(*lead, h, w)
 
 
+# ---------------------------------------------------------------------------
+# Denoise and contrast preprocessing (plain PyTorch: no kernel in the JAX
+# package either)
+# ---------------------------------------------------------------------------
+
+
+def bilateral_filter(image: torch.Tensor, d: int = 9, sigma_color: float = 75.0,
+                     sigma_space: float = 75.0) -> torch.Tensor:
+    """Edge-preserving denoise of [..., H, W, C] (or [H, W]) float in [0,1]:
+    the Gaussian range- and space-weighted mean over the d x d window.
+
+    The window's shifted copies wrap around the borders (a roll), as the
+    JAX package's filter does; cv2 reflects them instead. ``sigma_color``
+    is on cv2's 8-bit scale. The taps accumulate over dy, then dx."""
+    radius = d // 2
+    sc = sigma_color / 255.0
+    squeeze = image.dim() == 2
+    x = image[..., None] if squeeze else image
+    num = torch.zeros_like(x)
+    den = torch.zeros(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
+    for dy in range(-radius, radius + 1):
+        for dx in range(-radius, radius + 1):
+            w_s = torch.exp(torch.tensor(-0.5 * (dy * dy + dx * dx) / (sigma_space ** 2),
+                                         dtype=torch.float32)).to(x.dtype).item()
+            shifted = torch.roll(x, (dy, dx), dims=(-3, -2))
+            diff = shifted - x
+            w_r = torch.exp(-0.5 * torch.sum(diff * diff, dim=-1, keepdim=True) / (sc * sc))
+            w = w_s * w_r
+            num = num + w * shifted
+            den = den + w
+    y = num / den
+    return y[..., 0] if squeeze else y
+
+
+def clahe(gray: torch.Tensor, clip_limit: float = 3.0, grid: Tuple[int, int] = (8, 8),
+          nbins: int = 256) -> torch.Tensor:
+    """Contrast-limited adaptive histogram equalisation of each [H, W] image
+    of [..., H, W] (float in [0,1]), every image with its own tiles.
+
+    The image is edge-padded to a multiple of the grid; each tile's
+    histogram is clipped at ``clip_limit`` times the mean bin and the excess
+    spread evenly; the normalised CDFs are the tiles' lookup tables, and
+    each pixel interpolates bilinearly between the four nearest tiles'."""
+    lead = gray.shape[:-2]
+    h, w = gray.shape[-2:]
+    gh, gw = grid
+    th, tw = -(-h // gh), -(-w // gw)
+    x = gray.reshape(-1, h, w)
+    n = x.shape[0]
+    ph, pw = th * gh - h, tw * gw - w
+    if ph or pw:
+        x = F.pad(x[:, None], (0, pw, 0, ph), mode="replicate")[:, 0]
+    bins = torch.clamp((x * (nbins - 1) + 0.5).to(torch.int32), 0, nbins - 1)
+    tiles = bins.reshape(n, gh, th, gw, tw).permute(0, 1, 3, 2, 4).reshape(n * gh * gw, th * tw)
+    # one histogram a tile: bins offset by tile * nbins into one count vector
+    # (float32 counts are exact below 2^24; no host sync, so a CUDA graph
+    # can hold it, which torch.bincount's size check forbids)
+    offset = torch.arange(n * gh * gw, device=x.device)[:, None] * nbins
+    idx = (tiles.long() + offset).reshape(-1)
+    hist = torch.zeros(n * gh * gw * nbins, dtype=torch.float32, device=x.device)
+    hist = hist.index_add_(0, idx, torch.ones_like(idx, dtype=torch.float32))
+    hist = hist.reshape(n * gh * gw, nbins)
+
+    clip = max(clip_limit * (th * tw) / nbins, 1.0)
+    excess = torch.sum(torch.clamp(hist - clip, min=0.0), dim=1, keepdim=True)
+    hist = torch.clamp(hist, max=clip) + excess / nbins
+    cdf = torch.cumsum(hist, dim=1)
+    cdf = cdf / cdf[:, -1:]
+    luts = cdf.reshape(n, gh, gw, nbins)
+
+    def centres(size, tile, count):
+        pos = (torch.arange(size, dtype=torch.float32, device=x.device) + 0.5) / tile - 0.5
+        lo = torch.clamp(torch.floor(pos).to(torch.int64), 0, count - 1)
+        hi = torch.clamp(lo + 1, 0, count - 1)
+        return lo, hi, torch.clamp(pos - lo, 0.0, 1.0)
+
+    y0, y1, fy = centres(h, th, gh)
+    x0, x1, fx = centres(w, tw, gw)
+    fy, fx = fy[:, None], fx[None, :]
+    b = bins[:, :h, :w].long()
+    img = torch.arange(n, device=x.device)[:, None, None]
+
+    def look(ty, tx):
+        return luts[img, ty[None, :, None], tx[None, None, :], b]
+
+    out = (look(y0, x0) * (1 - fy) * (1 - fx) + look(y0, x1) * (1 - fy) * fx
+           + look(y1, x0) * fy * (1 - fx) + look(y1, x1) * fy * fx)
+    return out.to(gray.dtype).reshape(*lead, h, w)
+
+
+def enhance_contrast_rgb(image: torch.Tensor, clip_limit: float = 3.0) -> torch.Tensor:
+    """CLAHE on the BT.601 luma of each RGB image of [..., H, W, 3], with
+    the RGB values rescaled by the luma's change and clipped to [0,1]."""
+    luma = rgb_to_gray(image)
+    new_luma = clahe(luma, clip_limit=clip_limit)
+    scale = (new_luma + 1e-6) / (luma + 1e-6)
+    return torch.clamp(image * scale[..., None], 0.0, 1.0)
+
+
 def otsu_threshold(x: torch.Tensor, nbins: int = 256) -> torch.Tensor:
     """Otsu threshold of each [H, W] image of [..., H, W] in [0,1] -> [...]."""
     lead = x.shape[:-2]

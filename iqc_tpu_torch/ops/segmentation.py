@@ -230,3 +230,26 @@ def segment_rois(rois: torch.Tensor, class_ids: torch.Tensor, valid: torch.Tenso
     return SegmentationOutputs(masks=masks, area=area, perimeter=perimeter,
                                compactness=compactness, confidence=confs,
                                method=method.to(torch.int32))
+
+
+def segment_detections(images: torch.Tensor, boxes: torch.Tensor, class_ids: torch.Tensor,
+                       valid: torch.Tensor, roi_size: int = 128) -> SegmentationOutputs:
+    """Segment the boxes of one image or of a batch in one ROI batch.
+
+    images [H,W,3] or [H,W] (or [B,...] of them), float in [0,1]; boxes
+    [N,4] (or [B,N,4]) xyxy pixels; class_ids, valid [N] (or [B,N]). Gray
+    conversion, bilinear ROI gather to roi_size^2, then ``segment_rois`` over
+    all B*N ROIs at once; outputs come back as [N,...] (or [B,N,...])."""
+    single = boxes.dim() == 2
+    if single:
+        images, boxes, class_ids, valid = images[None], boxes[None], class_ids[None], valid[None]
+    gray = imops.rgb_to_gray(images) if images.dim() == 4 else images
+    b, n = boxes.shape[:2]
+    rois = imops.crop_and_resize(gray[..., None], boxes, (roi_size, roi_size))[..., 0]
+    flat = boxes.reshape(b * n, 4).to(torch.float32)
+    bw = torch.clamp(flat[:, 2] - flat[:, 0], min=1.0)
+    bh = torch.clamp(flat[:, 3] - flat[:, 1], min=1.0)
+    out = segment_rois(rois.reshape(b * n, roi_size, roi_size), class_ids.reshape(b * n),
+                       valid.reshape(b * n), bw / roi_size, bh / roi_size)
+    lead = (n,) if single else (b, n)
+    return SegmentationOutputs(*(t.reshape(*lead, *t.shape[1:]) for t in out))

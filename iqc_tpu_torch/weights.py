@@ -5,7 +5,9 @@ Flax's ``serialization.to_bytes`` writes a nested msgpack map (top level
 record's payload is itself msgpack: ``(shape, dtype name, raw C-order bytes)``.
 This module decodes that subset of msgpack with ``struct`` and numpy alone:
 maps, arrays, strings, bin, ext/fixext, ints, floats, bool and nil. Anything
-else raises.
+else raises. A ``bfloat16`` record is widened exactly to float32 (numpy has
+no bfloat16). ``save_variables`` writes the same format (``write_msgpack``),
+so the JAX package reads the port's files, with a JSON metadata sidecar.
 
 ``from_flax`` renames a Flax variables tree to the state dict of the port's
 modules, whose submodule names follow the Flax scopes (``Conv_0``,
@@ -18,11 +20,16 @@ activation scales, as numpy) into the port's int8 predictor.
 
 from __future__ import annotations
 
+import json
+import logging
+import os
 import struct
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -120,6 +127,9 @@ def _ndarray_from_payload(payload: bytes) -> np.ndarray:
     if not isinstance(raw, bytes):
         raise ValueError("ndarray record without a byte buffer")
     shape = tuple(int(s) for s in shape)
+    if dtype_name == "bfloat16":  # numpy has no bfloat16: widen exactly
+        bits = np.frombuffer(raw, dtype=np.uint16).astype(np.uint32) << 16
+        return bits.view(np.float32).reshape(shape)
     try:
         dtype = np.dtype(dtype_name)
     except TypeError as e:
@@ -144,6 +154,119 @@ def read_checkpoint(path: str) -> Dict[str, Any]:
     if not isinstance(tree, dict):
         raise ValueError(f"{path}: top level is not a map")
     return tree
+
+
+class _Writer:
+    """msgpack encoder of the subset the reader decodes, with the shortest
+    encoding of each value (as msgpack-python packs it)."""
+
+    def __init__(self):
+        self.parts = []
+
+    def put(self, fmt: str, *values) -> None:
+        self.parts.append(struct.pack(fmt, *values))
+
+    def _sized(self, n: int, small, formats) -> None:
+        """A length header: ``small`` = (limit, base byte) of the fix form
+        or None; ``formats``: (type byte, struct format) by width."""
+        if small is not None and n < small[0]:
+            self.put(">B", small[1] | n)
+            return
+        for code, fmt in formats:
+            if n < 1 << (8 * struct.calcsize(fmt)):
+                self.put(">B" + fmt[1:], code, n)
+                return
+        raise ValueError(f"msgpack object of {n} entries is too long")
+
+    def value(self, v: Any) -> None:
+        if isinstance(v, dict):
+            self._sized(len(v), (16, 0x80), ((0xDE, ">H"), (0xDF, ">I")))
+            for k in sorted(v, key=str):
+                self.value(str(k))
+                self.value(v[k])
+        elif isinstance(v, (list, tuple)):
+            self._sized(len(v), (16, 0x90), ((0xDC, ">H"), (0xDD, ">I")))
+            for x in v:
+                self.value(x)
+        elif isinstance(v, str):
+            b = v.encode("utf-8")
+            self._sized(len(b), (32, 0xA0), ((0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I")))
+            self.parts.append(b)
+        elif isinstance(v, bytes):
+            self._sized(len(v), None, ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I")))
+            self.parts.append(v)
+        elif isinstance(v, bool) or v is None:
+            self.put(">B", {None: 0xC0, False: 0xC2, True: 0xC3}[v])
+        elif isinstance(v, (int, np.integer)) and not isinstance(v, np.ndarray) and v >= 0:
+            v = int(v)
+            if v < 0x80:
+                self.put(">B", v)
+            else:
+                self._sized(v, None, ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")))
+        else:
+            self._ext(_EXT_NDARRAY, _ndarray_payload(v))
+
+    def _ext(self, code: int, payload: bytes) -> None:
+        n = len(payload)
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixed:
+            self.put(">B", fixed[n])
+        else:
+            self._sized(n, None, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")))
+        self.put(">b", code)
+        self.parts.append(payload)
+
+
+def _ndarray_payload(leaf) -> bytes:
+    """Flax's ndarray record: msgpack of (shape, dtype name, C-order bytes).
+    A torch bfloat16 tensor is written as dtype ``bfloat16``."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            shape, name, raw = tuple(t.shape), "bfloat16", t.view(torch.int16).numpy().tobytes()
+        else:
+            a = t.numpy()
+            shape, name, raw = a.shape, a.dtype.name, a.tobytes("C")
+    else:
+        a = np.asarray(leaf)
+        if a.dtype.hasobject:
+            raise ValueError(f"cannot serialize a leaf of dtype {a.dtype}")
+        shape, name, raw = a.shape, a.dtype.name, a.tobytes("C")
+    w = _Writer()
+    w.value((tuple(int(s) for s in shape), name, raw))
+    return b"".join(w.parts)
+
+
+def write_msgpack(tree: Any) -> bytes:
+    """Encode a nested dict / list of arrays as Flax's ``to_bytes`` does
+    (dict keys sorted, as JAX's tree utilities order them; every leaf an
+    ndarray record)."""
+    w = _Writer()
+    w.value(_state_dict(tree))
+    return b"".join(w.parts)
+
+
+def _state_dict(tree: Any) -> Any:
+    """Lists become maps keyed '0', '1', ... (Flax's state-dict form)."""
+    if isinstance(tree, dict):
+        return {str(k): _state_dict(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): _state_dict(v) for i, v in enumerate(tree)}
+    if isinstance(tree, torch.Tensor):
+        return tree
+    return np.asarray(tree)
+
+
+def save_variables(path: str, variables: Any, metadata: Optional[Dict] = None) -> None:
+    """Write a variables tree as a Flax msgpack checkpoint at ``path`` (and
+    ``metadata`` as JSON beside it, ``path + ".json"``); the JAX package's
+    ``load_variables`` reads it."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(write_msgpack(variables))
+    if metadata is not None:
+        with open(path + ".json", "w") as f:
+            json.dump(metadata, f, indent=2, default=str)
 
 
 def flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -174,6 +297,8 @@ def from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         name = _RENAME.get((collection, leaf))
         if name is None:
             raise ValueError(f"unexpected Flax leaf {collection}/{'/'.join(scope)}/{leaf}")
+        if isinstance(value, torch.Tensor):
+            value = value.detach().float().cpu().numpy()
         arr = np.asarray(value, dtype=np.float32)
         if leaf == "kernel" and arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
@@ -254,3 +379,25 @@ def install_int8_state(predictor, yolo_vars: Dict[str, Any] = None,
         predictor.install_yolo_int8(host(yolo_vars["q"]), host(yolo_vars["scales"]))
     if resnet_vars is not None:
         predictor.install_resnet_int8(host(resnet_vars["q"]), host(resnet_vars["scales"]))
+
+
+def load_or_init(module: torch.nn.Module, path: Optional[str], seed: int) -> str:
+    """Fill ``module`` from the Flax checkpoint at ``path`` (relative paths
+    from the repository root) and return "checkpoint". No path, or a missing
+    file, leaves seeded random weights (``layers.init_random``) and returns
+    "initialized"; a malformed or mismatched file raises ValueError."""
+    from iqc_tpu_torch.config import resolve_path
+    from iqc_tpu_torch.models.layers import init_random
+
+    init_random(module, seed)
+    if not path:
+        return "initialized"
+    full = resolve_path(path)
+    if not os.path.exists(full):
+        logger.warning("checkpoint %s not found; using initialized weights", full)
+        return "initialized"
+    try:
+        load_into(module, read_checkpoint(full))
+    except ValueError as e:
+        raise ValueError(f"corrupt or incompatible checkpoint {full!r}: {e}") from e
+    return "checkpoint"

@@ -239,3 +239,160 @@ def test_int8_matmul_refuses_what_int_mm_refuses_on_the_card(cuda):
         torch._int_mm(a16, b16.t())
     got = int8_conv.int_mm(a16, b16)
     assert torch.equal(got.cpu(), a16.cpu().int() @ b16.cpu().int().t())
+
+
+# -- the standalone entry points and the serving options ------------------------------------
+
+YOLO_CKPT = "models/yolov8n_qc_synthetic.msgpack"
+RESNET_CKPT = "models/resnet50_qc_128.msgpack"
+
+
+def _frames(n, size=128, seed=0):
+    """Grey parts with a dark bar and a bright blob."""
+    rng = np.random.default_rng(seed)
+    imgs = np.clip(170 + rng.normal(0, 6, (n, size, size, 3)), 0, 255).astype(np.uint8)
+    for i in range(n):
+        y, x = rng.integers(10, size - 58, 2)
+        imgs[i, y:y + 8, x:x + 50] = 30
+        y, x = rng.integers(20, size - 38, 2)
+        imgs[i, y:y + 22, x:x + 26] = 240
+    return imgs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [32, 33, 256, 257])
+def test_morph_kernels_at_the_standalone_shapes_equal_plain(cuda, n):
+    """ImageSegmentator's ROI batches: 32 ROIs an image, 8 images (K3 takes
+    one more, the all-ones ROI)."""
+    masks, seeds, allow = _masks(n, 128, seed=n)
+    assert torch.equal(morph_kernel.clean(masks.to(cuda)).cpu(), morph_kernel.clean_plain(masks))
+    got = morph_kernel.grow_clean(seeds.to(cuda), allow.to(cuda), 24, 16).cpu()
+    assert torch.equal(got, morph_kernel.grow_clean_plain(seeds, allow, 24, 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 96, 80, 3), (2, 64, 64, 3)])
+def test_denoise_and_contrast_on_the_card_equal_the_cpu(cuda, shape):
+    from iqc_tpu_torch.ops import image as imops
+
+    x = torch.from_numpy(np.random.default_rng(1).random(shape, dtype=np.float32))
+    for fn in (imops.bilateral_filter, imops.enhance_contrast_rgb):
+        got = fn(x.to(cuda)).cpu()
+        assert torch.allclose(got, fn(x), rtol=0, atol=1e-5), fn.__name__
+
+
+def _option_config(extra):
+    from iqc_tpu_torch.config import SystemConfig
+
+    raw = {"model": {"yolo_weights": YOLO_CKPT, "resnet_weights": "", "max_detections": 16,
+                     "max_classified": 4, "confidence_threshold": 0.05,
+                     "classifier_input": 64, "resnet_stages": [1, 1, 1, 1]},
+           "processing": {"batch_size": 2, "input_size": [128, 128],
+                          "preprocessing": {"resize": [128, 128]}},
+           "quality_control": {"thresholds": {"confidence_threshold": 0.0,
+                                              "area_threshold_percent": 1000.0}},
+           "edge": {"precision": "int8"}}
+    for section, values in extra.items():
+        for k, v in values.items():
+            raw.setdefault(section, {})[k] = v
+    return SystemConfig.from_dict(raw)
+
+
+OPTIONS = {
+    "denoise_contrast": {"processing": {"preprocessing": {"resize": [128, 128], "denoise": True,
+                                                          "enhance_contrast": True}}},
+    "yolo_v1_walk": {"edge": {"precision": "int8", "yolo_int8_stream": False}},
+    "yolo_weight_only": {"edge": {"precision": "int8", "yolo_int8": False}},
+    "pruned": {"edge": {"precision": "int8", "sparsity": 0.05, "structured_pruning": True}},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", list(OPTIONS))
+def test_detector_option_on_the_card_equals_the_cpu(cuda, option):
+    """The card's quantized networks served on the CPU too, on the same
+    preprocessed frames: decisions equal, boxes within 1 px, scores within
+    1e-3. The preprocessing alone: CLAHE bins its input, so a pixel whose
+    filtered luma sits on a bin edge can take the next bin's mapping on one
+    side: at most 0.1% of the values beyond 1e-5, each within 0.05."""
+    from iqc_tpu_torch.inference.detector import QualityControlDetector
+
+    cfg = _option_config(OPTIONS[option])
+    gpu = QualityControlDetector(config=cfg, device="cuda")
+    ens = gpu.ensemble_predictor
+    state = {"yolo": ens.yolo_vars, "resnet": ens.resnet_vars}
+    cpu = QualityControlDetector(config=cfg, device="cpu", int8_state=state)
+    assert cpu.ensemble_predictor.precision_report == ens.precision_report
+    frames = torch.from_numpy(_frames(2, seed=3))
+    x = gpu._preprocess(frames.to(cuda))
+    err = (x.cpu() - cpu._preprocess(frames)).abs()
+    assert float((err > 1e-5).float().mean()) <= 1e-3 and float(err.max()) <= 0.05
+    g_out, _, _ = ens.run_full_host(x)
+    c_out, _, _ = cpu.ensemble_predictor.run_full_host(x.cpu())
+    v = c_out.valid
+    assert np.array_equal(g_out.valid, v) and v.any()
+    for f in ("classes", "final_severity", "crop_class"):
+        assert np.array_equal(getattr(g_out, f)[v], getattr(c_out, f)[v]), f
+    assert np.abs(g_out.boxes[v] - c_out.boxes[v]).max() <= 1.0
+    assert np.abs(g_out.yolo_scores[v] - c_out.yolo_scores[v]).max() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_entry_points_on_the_card_equal_the_cpu(cuda):
+    from iqc_tpu_torch.inference.segmentation import ImageSegmentator
+    from iqc_tpu_torch.models import ResNetClassifier, YOLODetector
+
+    frames = _frames(4, seed=4)
+    kw = dict(model_path=YOLO_CKPT, confidence_threshold=0.05, input_size=(128, 128))
+    yg, yc = YOLODetector(**kw, device="cuda"), YOLODetector(**kw, device="cpu")
+    before = nms_kernel.LAUNCHES["suppress"]
+    dg = yg.batch_predict(list(frames))
+    assert nms_kernel.LAUNCHES["suppress"] == before + 1
+    for g, c in zip(dg, yc.batch_predict(list(frames))):
+        assert [d["class"] for d in g["detections"]] == [d["class"] for d in c["detections"]]
+        for a, b in zip(g["detections"], c["detections"]):
+            assert abs(a["confidence"] - b["confidence"]) <= 1e-4
+    cg, cc = (ResNetClassifier(model_path=RESNET_CKPT, device=d) for d in ("cuda", "cpu"))
+    g, c = cg.predict(frames[0]), cc.predict(frames[0])
+    assert g["predicted_class"] == c["predicted_class"]
+    assert abs(g["confidence"] - c["confidence"]) <= 1e-4
+    assert np.allclose(cg.extract_features(frames[1]), cc.extract_features(frames[1]),
+                       rtol=1e-4, atol=1e-5)
+    sg, sc = (ImageSegmentator(device=d) for d in ("cuda", "cpu"))
+    dets = [r["detections"] for r in dg]
+    before = dict(morph_kernel.LAUNCHES)
+    got = sg.segment_batch(frames, dets)
+    assert all(morph_kernel.LAUNCHES[k] == before[k] + 1 for k in before)
+    for g, c in zip(got, sc.segment_batch(frames, dets)):
+        for rg, rc in zip(g["segmented_regions"], c["segmented_regions"]):
+            assert np.mean(rg["local_mask"] == rc["local_mask"]) >= 0.999
+            assert rg["segmentation_method"] == rc["segmentation_method"]
+
+
+@pytest.mark.cuda
+def test_engine_graph_replay_equals_eager(cuda):
+    """build_engine on the card captures a CUDA graph at max_batch_size; its
+    replay equals the eager forward."""
+    from iqc_tpu_torch.models.optimizer import EngineOptimizer
+    from iqc_tpu_torch.models.yolo import YOLOv8
+    from iqc_tpu_torch.weights import load_into, read_checkpoint
+
+    torch.backends.cudnn.allow_tf32 = False
+    net = YOLOv8().to(cuda).eval()
+
+    def apply_fn(variables, batch):
+        return net(batch)
+
+    variables = read_checkpoint(YOLO_CKPT)
+    opt = EngineOptimizer(precision="int8", max_batch_size=4)
+    weights, _ = opt.optimize_variables(variables)
+    load_into(net, weights)
+    net.to(cuda)
+    engine = opt.build_engine(apply_fn, variables, torch.zeros(1, 128, 128, 3, device=cuda))
+    assert engine.graph is not None and engine.flops > 0 and opt.report["compile_seconds"] > 0
+    x = torch.rand(4, 128, 128, 3, device=cuda)
+    got = engine(weights, x)
+    with torch.inference_mode():
+        want = net(x)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -84,11 +84,15 @@ def test_config_from_dict_and_validation():
         assert SystemConfig.from_dict(ok).edge.precision == ok["edge"]["precision"]
     assert SystemConfig.from_dict({"model": {"compute_dtype": "float32"}}).model.compute_dtype \
         == "float32"
-    for bad in ({"edge": {"yolo_int8": False}}, {"edge": {"yolo_int8_stream": False}},
-                {"edge": {"sparsity": 0.5}}, {"edge": {"precision": "fp16"}},
+    # the settings the JAX package serves beyond the shipped profile
+    for ok in ({"edge": {"yolo_int8": False}}, {"edge": {"yolo_int8_stream": False}},
+               {"edge": {"sparsity": 0.5, "structured_pruning": True}},
+               {"processing": {"preprocessing": {"denoise": True, "enhance_contrast": True}}}):
+        SystemConfig.from_dict(ok)
+    for bad in ({"edge": {"sparsity": 1.0}}, {"edge": {"sparsity": -0.1}},
+                {"edge": {"precision": "fp16"}},
                 {"model": {"compute_dtype": "float16"}},
-                {"processing": {"input_size": [100, 100]}},
-                {"processing": {"preprocessing": {"denoise": True}}}):
+                {"processing": {"input_size": [100, 100]}}):
         with pytest.raises(ValueError):
             SystemConfig.from_dict(bad)
 

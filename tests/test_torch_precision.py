@@ -351,8 +351,11 @@ def test_int8_model_info_and_walk_overrides(carried, monkeypatch):
         "true-int8 MXU (static calibrated activations)"
     assert "error" not in v1.predict(_images(11, 1)[0])
     monkeypatch.setenv("IQC_YOLO_INT8_STREAM", "0")
-    with pytest.raises(ValueError, match="not ported"):
-        QualityControlDetector(config=SystemConfig.from_dict(raw), device="cpu")
+    both_v1 = QualityControlDetector(config=SystemConfig.from_dict(raw), device="cpu")
+    report = both_v1.ensemble_predictor.precision_report
+    assert report["yolo"] == report["resnet"] == "true-int8 MXU (static calibrated activations)"
+    assert len(both_v1.ensemble_predictor.yolo_vars["scales"]) == 57
+    assert "error" not in both_v1.predict(_images(11, 1)[0])
 
 
 if __name__ == "__main__":
