@@ -46,7 +46,19 @@ Phases, each under a deadline and printed with its wall time:
      and segment_batch of 8, each against the CPU; the morphology kernels
      against their plain versions at the segmentator's ROI batches (32 and
      256 ROIs); the bilateral filter and CLAHE timed at [1|8,640,640,3];
-     the kernels' launch counters read around every path.
+     the kernels' launch counters read around every path;
+ 10. captured and exported: every device entry point runs as a CUDA graph per
+     input signature (iqc_tpu_torch/ops/jit_utils.py), so every phase above
+     already replayed graphs. Here predict and predict_batch of 8, replayed,
+     against the same FullForward called eagerly on the same frames at int8,
+     fp32 and bf16; thresholds and fusion weights changed by update_config
+     between replays (no new capture); capture seconds per signature and the
+     graphs cached; int8 predict wall ms and its torch.profiler kernels,
+     device ms and idle share, captured and eager; K1-K3 launches through
+     replays against one eager call's; the int8 predictor exported at batch
+     1 on the card (torch.export, iqc_tpu_torch/models/export.py), reloaded
+     and held against live run; K1's guard regions at run-time thresholds
+     0.3, 0.45 and 0.7.
 Then one JSON line of kernel measurements, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits nonzero without that line.
 Needs one CUDA device; exits nonzero at once without one.
@@ -343,16 +355,18 @@ def kernel_cases(torch, dev, images, rois, cdll=None):
     b, k = boxes.shape[:2]
     words = (k + 31) // 32
     keep = torch.empty((b, k), dtype=torch.bool, device=dev)
+    # the IoU threshold as the forward gives it: a 0-d float32 tensor on the card
+    thr = torch.tensor(THRESHOLD, dtype=torch.float32, device=dev)
     rounds = suppress_rounds(torch, boxes, ROUNDS)
     cases = [dict(
         name="suppress", kernel="suppress_kernel", shape=f"[{b},{k},4]",
-        wrapper=lambda: nms_kernel.suppress(boxes, THRESHOLD, ROUNDS),
-        raw=raw(cdll.iqc_suppress, boxes, keep, b, k, THRESHOLD, ROUNDS),
+        wrapper=lambda: nms_kernel.suppress(boxes, thr, ROUNDS),
+        raw=raw(cdll.iqc_suppress, boxes, thr, keep, b, k, ROUNDS),
         out=keep,
-        plain=lambda: nms_kernel.suppress_plain(boxes, THRESHOLD, ROUNDS),
+        plain=lambda: nms_kernel.suppress_plain(boxes, thr, ROUNDS),
         # 14 float operations per pair; 2 word operations per candidate and
         # bitmask word in each round that this data runs
-        n_bytes=boxes.numel() * 4 + b * k,
+        n_bytes=boxes.numel() * 4 + 4 + b * k,
         n_ops=b * (k * (k - 1) // 2) * 14 + sum(rounds) * k * words * 2,
         note=f"rounds {rounds}")]
 
@@ -505,18 +519,20 @@ def build_detector(torch, overrides=None, label="int8", yolo_mode=STREAM_MODE):
     return det
 
 
-def request_profile(torch, det, image):
-    """One predict under torch.profiler: (wall ms, device kernels, their
-    summed device ms). The device is idle for the rest of the wall time."""
+def request_profile(torch, det, image, predict=None):
+    """One predict (``predict``, by default ``det.predict``, also
+    ``predict_batch`` of a list) under torch.profiler: (wall ms, device
+    kernels, their summed device ms). The device is idle for the rest of the
+    wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        r = det.predict(image)
+        r = (predict or det.predict)(image)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
-    check("error" not in r, f"profiled predict failed: {r.get('error')}")
+    check("error" not in (r[0] if isinstance(r, list) else r), "the profiled call failed")
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.name.startswith(("Memcpy", "Memset"))]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
@@ -1178,6 +1194,271 @@ def phase_entry_points(torch, images):
     return yolo_launches, seg_launches
 
 
+# -- phase 10: captured and exported ----------------------------------------------------
+
+
+def jitted(det):
+    """The detector's captured entry points: (name, HoistedJit)."""
+    from iqc_tpu_torch.inference import detector
+
+    ens = det.ensemble_predictor
+    return (("preprocess", detector._preprocess_frames), ("detection", ens._forward),
+            ("detection packed", ens._forward_packed), ("full", ens._forward_full))
+
+
+def n_graphs(det) -> int:
+    return sum(len(j.captures()) for _, j in jitted(det))
+
+
+def eager_full(torch, ens, x):
+    """The predictor's FullForward called directly (eager) on ``x``: numpy
+    (EnsembleOutputs, masks, seg_stats), as run_full_host returns them."""
+    from iqc_tpu_torch.models.ensemble import unpack_outputs
+
+    with torch.inference_mode():
+        det, img, masks, stats = ens.full_forward(x, *ens._args())
+        torch.cuda.synchronize()
+        return (unpack_outputs(det.cpu().numpy(), img.cpu().numpy()), masks.cpu().numpy(),
+                stats.cpu().numpy())
+
+
+def compare_full(got, want, what, box_tol, score_tol, relative):
+    """Decisions equal, boxes within ``box_tol`` px, detector scores and
+    ensemble confidences within ``score_tol`` (relative to the eager value
+    when ``relative``), masks on MASK_AGREEMENT of pixels and segmentation
+    methods equal. Returns (box error, score error, mask agreement)."""
+    import numpy as np
+
+    (g, gm, gs), (w, wm, ws) = got, want
+    v = w.valid
+    check(np.array_equal(g.valid, v), f"{what}: valid slots differ")
+    for f in ("classes", "yolo_severity", "crop_class", "crop_severity", "final_severity"):
+        check(np.array_equal(getattr(g, f)[v], getattr(w, f)[v]), f"{what}: {f} differs")
+    check(np.array_equal(g.severity_counts, w.severity_counts), f"{what}: severity counts differ")
+    box_err = float(np.abs(g.boxes[v] - w.boxes[v]).max()) if v.any() else 0.0
+    score_err = 0.0
+    for f in ("yolo_scores", "ensemble_conf"):
+        a, b = getattr(g, f)[v], getattr(w, f)[v]
+        d = np.abs(a - b) / (np.maximum(np.abs(b), 1e-6) if relative else 1.0)
+        score_err = max(score_err, float(d.max()) if v.any() else 0.0)
+    agree = float(np.mean(gm == wm))
+    check(box_err <= box_tol, f"{what}: boxes differ by {box_err} px")
+    check(score_err <= score_tol, f"{what}: scores differ by {score_err}")
+    check(agree >= MASK_AGREEMENT, f"{what}: masks agree on {agree:.6f} of pixels")
+    check(np.array_equal(gs[..., 4], ws[..., 4]), f"{what}: segmentation methods differ")
+    return box_err, score_err, agree
+
+
+def eager_on_device_thread(det, fn):
+    """``fn`` with every captured entry point run eagerly, on the detector's
+    device thread, where predict and predict_batch run."""
+    from iqc_tpu_torch.ops import jit_utils
+
+    def call(*args):
+        def body():
+            with jit_utils.eager():
+                return fn(*args)
+        return det._on_device_thread(body)
+    return call
+
+
+def suppress_guard_cases(torch, dev):
+    """K1's raw entry point between two guard regions, captured in a CUDA
+    graph at threshold 0.5 and replayed with its threshold tensor set to
+    0.3, 0.45 and 0.7: each replay equals the plain version at that
+    threshold and writes no byte beside its keep mask. Returns the cases run."""
+    import numpy as np
+
+    from iqc_tpu_torch import build
+    from iqc_tpu_torch.ops import nms_kernel
+
+    guard, sentinel = 4096, 0xA5
+    fn = build.library().fns["iqc_suppress"]
+    n = 0
+    for batch, k, iterations in ((1, 300, 16), (8, 300, 16), (3, 512, 40), (2, 20, 16)):
+        if k >= 48:
+            boxes = nms_inputs(torch, dev, batch=batch, k=k)
+        else:
+            rng = np.random.default_rng(k)
+            lo = rng.uniform(0, 100, (batch, k, 2))
+            boxes = torch.tensor(np.concatenate([lo, lo + rng.uniform(5, 40, (batch, k, 2))], -1),
+                                 dtype=torch.float32, device=dev)
+        buf = torch.full((batch * k + 2 * guard,), sentinel, dtype=torch.uint8, device=dev)
+        keep = buf[guard:guard + batch * k].view(batch, k)
+        thr = torch.tensor(THRESHOLD, dtype=torch.float32, device=dev)
+
+        def launch():
+            build.launch(fn, boxes.device, boxes.data_ptr(), thr.data_ptr(), keep.data_ptr(),
+                         batch, k, iterations)
+
+        launch()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            launch()
+        for threshold in (0.3, 0.45, 0.7):
+            thr.fill_(threshold)
+            for _ in range(3):
+                graph.replay()
+            torch.cuda.synchronize()
+            intact = bool((buf[:guard] == sentinel).all()) and bool((buf[-guard:] == sentinel).all())
+            check(intact, f"K1 [{batch},{k},4] at {threshold}: a guard region was written")
+            want = nms_kernel.suppress_plain(boxes, thr, iterations)
+            check(torch.equal(keep.bool(), want),
+                  f"K1 [{batch},{k},4] at run-time threshold {threshold} differs from plain")
+            n += 1
+    return n
+
+
+CAPTURE_TOLERANCE = {"int8": (1.0, 1e-3, False), "bf16": (1.0, 1e-3, False),
+                     "fp32": (1e-2, 1e-4, True)}
+
+
+def phase_captured(torch, images, det8, det32, det16):
+    """The captured forwards against eager, thresholds at run time, capture
+    times, int8 predict timing and profile, replay launches, export."""
+    import numpy as np
+
+    from iqc_tpu_torch.models.export import export_ensemble, load_exported
+    from iqc_tpu_torch.ops import jit_utils, nms_kernel
+
+    out = {"capture_vs_eager": {}}
+    for label, det in (("int8", det8), ("fp32", det32), ("bf16", det16)):
+        ens = det.ensemble_predictor
+        x1 = det._preprocess(det._upload(images[2])[None])
+        x8 = det._preprocess(torch.stack([det._upload(im) for im in images[:8]]))
+        for what, x in (("predict", x1), ("predict_batch 8", x8)):
+            ens.run_full_host(x)
+            got = ens.run_full_host(x)  # a replay
+            errs = compare_full(got, eager_full(torch, ens, x), f"{label} {what} captured vs eager",
+                                *CAPTURE_TOLERANCE[label])
+            out["capture_vs_eager"][f"{label} {what}"] = errs
+            print(f"{label} {what}: captured equals eager, {int(got[0].valid.sum())} detections, "
+                  f"boxes within {errs[0]:.3e} px, scores within {errs[1]:.3e}"
+                  f"{' relative' if label == 'fp32' else ''}, masks agree on "
+                  f"{errs[2] * 100:.4f}% of pixels")
+
+    # thresholds and weights at run time: no new capture (both forwards of a
+    # request captured first)
+    ens = det8.ensemble_predictor
+    x1 = det8._preprocess(det8._upload(images[2])[None])
+    before = ens.run_full_host(x1)
+    det8.predict(images[2], include_segmentation=False)
+    graphs = n_graphs(det8)
+    m = det8.config.model
+    saved = {"confidence_threshold": ens.confidence_threshold,
+             "nms_threshold": m.nms_threshold, "ensemble_weights": dict(m.ensemble_weights)}
+    det8.update_config({"model": {"confidence_threshold": 0.05, "nms_threshold": 0.3,
+                                  "ensemble_weights": {"yolo": 0.35, "resnet": 0.65}}})
+    try:
+        after = ens.run_full_host(x1)
+        errs = compare_full(after, eager_full(torch, ens, x1), "int8 after update_config",
+                            *CAPTURE_TOLERANCE["int8"])
+        r = det8.predict(images[2], include_segmentation=False)
+        check("error" not in r, f"detection-only predict failed: {r.get('error')}")
+    finally:
+        det8.update_config({"model": saved})
+    check(n_graphs(det8) == graphs, f"update_config made {n_graphs(det8) - graphs} new captures")
+    print(f"update_config (confidence 0.05, NMS 0.3, weights 0.35/0.65) between replays: "
+          f"{int(before[0].valid.sum())} -> {int(after[0].valid.sum())} detections, equal to "
+          f"eager at the new values (boxes within {errs[0]:.3e} px), no new capture "
+          f"({graphs} graphs)")
+
+    # launches through replays
+    reset_launches()
+    with jit_utils.eager():
+        ens.run_full_host(x1)
+    one = read_launches()
+    reset_launches()
+    for _ in range(5):
+        ens.run_full_host(x1)
+    five = read_launches()
+    check(all(v > 0 for v in one.values()) and five == {k: 5 * v for k, v in one.items()},
+          f"launches through 5 replays {five}, one eager call {one}")
+    print(f"launches: one eager full forward {one}; 5 replays {five}")
+    out["launches_eager_call"], out["launches_5_replays"] = one, five
+
+    # int8 predict and predict_batch of 8: captured against eager, wall
+    # times after a first call and one call under the profiler
+    times = {}
+    calls = {"captured": (det8.predict, det8.predict_batch),
+             "eager": (eager_on_device_thread(det8, lambda im: det8._predict(im, True)),
+                       eager_on_device_thread(det8, det8._predict_batch))}
+    for label, (predict, predict_batch) in calls.items():
+        for what, fn, arg, n_calls in (("predict", predict, None, 10),
+                                       ("predict_batch 8", predict_batch, images[:8], 3)):
+            fn(arg if arg is not None else images[3])
+            ms = []
+            for i in range(n_calls):
+                t = time.perf_counter()
+                r = fn(arg if arg is not None else images[i % 8])
+                ms.append((time.perf_counter() - t) * 1e3)
+                check("error" not in (r[0] if isinstance(r, list) else r),
+                      f"{label} {what} failed")
+            wall, n, busy = request_profile(torch, det8, arg if arg is not None else images[1],
+                                            fn)
+            times[f"{label} {what}"] = {"wall_ms": ms, "profile": {
+                "wall_ms": wall, "kernels": n, "device_ms": busy, "idle": 1 - busy / wall}}
+            print(f"int8 {what} {label}: {', '.join(f'{v:.2f}' for v in ms)} ms (median "
+                  f"{sorted(ms)[len(ms) // 2]:.2f}); under torch.profiler {wall:.2f} ms wall, "
+                  f"{n} kernels, {busy:.3f} ms of device time, device idle "
+                  f"{100 * (1 - busy / wall):.1f}% of it")
+    out["int8_timing"] = times
+
+    # export at batch 1 on the card, reload, against live run
+    path = os.path.join(REPO, "build", "export", "ensemble_int8.iqc")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t = time.perf_counter()
+    meta = export_ensemble(ens, path, batch_size=1)
+    export_s = time.perf_counter() - t
+    t = time.perf_counter()
+    engine = load_exported(path, device="cuda")
+    load_s = time.perf_counter() - t
+    check(meta["device"].startswith("cuda") and "iqc.suppress" in str(engine.program.graph),
+          "the exported program holds no iqc.suppress node")
+    frame = images[3][None]
+    kw = dict(confidence_threshold=ens.confidence_threshold, nms_threshold=ens.nms_threshold,
+              ensemble_weights=dict(ens.ensemble_weights))
+    before = nms_kernel.LAUNCHES["suppress"]
+    got = engine.outputs(frame, **kw)
+    check(nms_kernel.LAUNCHES["suppress"] == before + 1, "the exported program did not launch K1")
+    live = ens.run_host(frame)
+    v = live.valid
+    check(np.array_equal(got.valid, v) and np.array_equal(got.classes[v], live.classes[v]),
+          "the exported program's detections differ from live run")
+    box_err = float(np.abs(got.boxes[v] - live.boxes[v]).max()) if v.any() else 0.0
+    check(box_err <= 1.0, f"exported boxes differ from live run by {box_err} px")
+    x = torch.from_numpy(frame).cuda()
+    scalars = [torch.tensor(float(s), device="cuda") for s in
+               (kw["confidence_threshold"], kw["nms_threshold"], kw["ensemble_weights"]["yolo"],
+                kw["ensemble_weights"]["resnet"])]
+    with torch.no_grad():
+        program_ms = cuda_time_ms(lambda: engine.module(x, *scalars), warmup=2, iters=10)
+    size = os.path.getsize(path)
+    print(f"export of the int8 predictor at batch 1: {export_s:.2f} s, {size} bytes; reload "
+          f"{load_s:.2f} s; {int(v.sum())} detections equal to live run (boxes within "
+          f"{box_err:.3e} px); the program {program_ms:.3f} ms a call, K1 launched")
+    out["export"] = {"seconds": export_s, "bytes": size, "load_seconds": load_s,
+                     "program_ms": program_ms, "box_err": box_err}
+
+    n = suppress_guard_cases(torch, torch.device("cuda"))
+    print(f"K1 guard regions at run-time thresholds 0.3, 0.45, 0.7: {n} cases intact and "
+          f"equal to plain")
+
+    seconds = {}
+    for label, det in (("int8", det8), ("fp32", det32), ("bf16", det16)):
+        for name, j in jitted(det):
+            if name != "preprocess":
+                seconds[f"{label} {name}"] = [round(c.seconds, 4) for c in j.captures()]
+    from iqc_tpu_torch.inference import detector
+
+    seconds["preprocess (shared)"] = [round(c.seconds, 4)
+                                      for c in detector._preprocess_frames.captures()]
+    total = sum(len(v) for v in seconds.values())
+    print(f"capture seconds per signature: {seconds}; {total} graphs cached")
+    out["capture_seconds"], out["graphs"] = seconds, total
+    return out
+
+
 def main() -> int:
     t_all = time.perf_counter()
     try:
@@ -1212,6 +1493,8 @@ def main() -> int:
             serving, per_request, detection_only = phase_serving(torch, images, conf)
         with Phase("networks", 300):
             networks = phase_networks(torch, det, det32, det16)
+        with Phase("captured and exported", 300):
+            captured = phase_captured(torch, images, det, det32, det16)
         del det, det32, det16
         torch.cuda.empty_cache()
         with Phase("options and entry points", 480):
@@ -1232,8 +1515,10 @@ def main() -> int:
         row["launches_options"] = {k: v[counter] for k, v in option_launches.items()}
         row["launches_yolo_detector"] = yolo_launches[counter]
         row["launches_image_segmentator"] = seg_launches[counter]
+        row["launches_5_replays"] = captured["launches_5_replays"][counter]
         if counter in standalone:
             row["segmentator_shapes"] = standalone[counter]
+    print(json.dumps({"captured": captured}))
     print(json.dumps({"networks": networks}))
     print(json.dumps({"preprocessing": preprocessing}))
     print(f"total wall time {time.perf_counter() - t_all:.2f} s")

@@ -38,8 +38,8 @@ BUILD_TIMEOUT_S = 300  # below chip_smoke.py's build deadline, so nvcc is stoppe
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # boxes, keep, batch, k, threshold, iterations, stream
-    "iqc_suppress": (_P, _P, _I, _I, ctypes.c_float, _I, _P),
+    # boxes, threshold (a device pointer), keep, batch, k, iterations, stream
+    "iqc_suppress": (_P, _P, _P, _I, _I, _I, _P),
     # seeds, allow, out, n, r, grow_iterations, fill_iterations, stream
     "iqc_grow_clean": (_P, _P, _P, _I, _I, _I, _I, _P),
     # mask, out, n, r, fill_iterations, stream

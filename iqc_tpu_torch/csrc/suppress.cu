@@ -41,7 +41,7 @@
 // sending each round's keep words to every block over DSMEM with a cluster
 // sync a round, which costs 0.9 us a round against 0.3 us here. At B = 1
 // the kernel takes 6 us with no round and 11 us with 16.
-// ptxas (-Xptxas -v, sm_90a): 34 registers, 43,136 B shared memory, no
+// ptxas (-Xptxas -v, sm_90a): 36 registers, 43,136 B shared memory, no
 // spills.
 //
 // Rounding: built with --fmad=false and IEEE division, and the IoU is
@@ -65,8 +65,8 @@ constexpr int kPerUnit = 4;     // candidates j per warp work unit (swept over 1
 constexpr uint32_t kAll = 0xffffffffu;
 
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
-suppress_kernel(const float* __restrict__ boxes, uint8_t* __restrict__ keep_out, int k,
-                float threshold, int iterations) {
+suppress_kernel(const float* __restrict__ boxes, const float* __restrict__ threshold_in,
+                uint8_t* __restrict__ keep_out, int k, int iterations) {
   __shared__ float x1[kMaxK], y1[kMaxK], x2[kMaxK], y2[kMaxK], area[kMaxK];
   // sup[w * kMaxK + j], bit t: box 32 * w + t suppresses candidate j
   __shared__ uint32_t sup[kMaxWords * kMaxK];
@@ -82,6 +82,10 @@ suppress_kernel(const float* __restrict__ boxes, uint8_t* __restrict__ keep_out,
   const int first_word = rank * per_block;
   const int own_words = max(0, min(words, first_word + per_block) - first_word);
 
+  // the IoU threshold, read once from the device at run time (as the TPU
+  // kernel reads thresh_ref from SMEM), so that a captured graph or an
+  // exported program takes the value its input holds at each replay
+  const float threshold = __ldg(threshold_in);
   const float* b = boxes + static_cast<size_t>(image) * k * 4;
   for (int j = threadIdx.x; j < k; j += kThreads) {
     const float a0 = b[4 * j], a1 = b[4 * j + 1], a2 = b[4 * j + 2], a3 = b[4 * j + 3];
@@ -173,14 +177,17 @@ suppress_kernel(const float* __restrict__ boxes, uint8_t* __restrict__ keep_out,
 
 }  // namespace
 
-// boxes [batch, k, 4] float32 and keep [batch, k] uint8, contiguous, on the
-// current device. Returns the CUDA error code of the launch (0 = success).
-extern "C" int iqc_suppress(const void* boxes, void* keep, int batch, int k,
-                            float threshold, int iterations, void* stream) {
+// boxes [batch, k, 4] float32 and keep [batch, k] uint8, contiguous, and the
+// IoU threshold, one float32, all on the current device. Returns the CUDA
+// error code of the launch (0 = success).
+extern "C" int iqc_suppress(const void* boxes, const void* threshold, void* keep, int batch,
+                            int k, int iterations, void* stream) {
   if (batch <= 0 || k <= 0) return 0;
-  if (k > kMaxK || iterations < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (k > kMaxK || iterations < 0 || threshold == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   suppress_kernel<<<batch * kCluster, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(boxes), static_cast<uint8_t*>(keep), k, threshold,
-      iterations);
+      static_cast<const float*>(boxes), static_cast<const float*>(threshold),
+      static_cast<uint8_t*>(keep), k, iterations);
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,6 +40,7 @@ from iqc_tpu_torch.inference.postprocess import PostProcessor
 from iqc_tpu_torch.inference.segmentation import ImageSegmentator
 from iqc_tpu_torch.models.ensemble import EnsemblePredictor
 from iqc_tpu_torch.ops import image as imops
+from iqc_tpu_torch.ops.jit_utils import hoisted_jit
 from iqc_tpu_torch.runtime import LatencyHistogram
 from iqc_tpu_torch.runtime.codec import decode_image
 from iqc_tpu_torch.utils.tracing import StageTimes, stage_timer
@@ -51,6 +52,23 @@ _thread_role = threading.local()
 
 def _mark_device_thread() -> None:
     _thread_role.device = True
+
+
+@hoisted_jit
+def _preprocess_frames(images: torch.Tensor, resize, denoise: bool,
+                       enhance_contrast: bool) -> torch.Tensor:
+    """[B,H,W,3] uint8 -> float [0,1] at ``resize`` (None: as it is), then the
+    bilateral denoise (d 9, sigmas 75) and the per-image CLAHE contrast step
+    where asked. A pure function of its arguments, so one wrapper serves
+    every detector: one CUDA graph per frame shape, device and flags."""
+    x = imops.to_float(images)
+    if resize is not None and tuple(x.shape[1:3]) != resize:
+        x = imops.resize_bilinear(x, resize)
+    if denoise:
+        x = imops.bilateral_filter(x, d=9, sigma_color=75.0, sigma_space=75.0)
+    if enhance_contrast:
+        x = imops.enhance_contrast_rgb(x)
+    return x
 
 
 class QualityControlDetector:
@@ -86,16 +104,13 @@ class QualityControlDetector:
     def _preprocess(self, images: torch.Tensor) -> torch.Tensor:
         """[B,H,W,3] uint8 on the device -> float [0,1] at the resize size,
         then the bilateral denoise (d 9, sigmas 75) and the per-image CLAHE
-        contrast step where the config asks for them."""
+        contrast step where the config asks for them (``_preprocess_frames``,
+        the config's flags as static arguments)."""
         pre = self.config.processing.preprocessing
-        x = imops.to_float(images)
-        if pre.resize is not None and tuple(x.shape[1:3]) != tuple(pre.resize):
-            x = imops.resize_bilinear(x, tuple(pre.resize))
-        if pre.denoise:
-            x = imops.bilateral_filter(x, d=9, sigma_color=75.0, sigma_space=75.0)
-        if pre.enhance_contrast:
-            x = imops.enhance_contrast_rgb(x)
-        return x
+        resize = tuple(int(v) for v in pre.resize) if pre.resize is not None else None
+        with torch.inference_mode():
+            return _preprocess_frames(images, resize, bool(pre.denoise),
+                                      bool(pre.enhance_contrast))
 
     @staticmethod
     def _to_rgb_array(image) -> Optional[np.ndarray]:

@@ -16,11 +16,22 @@ import torch
 
 from iqc_tpu_torch.config import SystemConfig
 from iqc_tpu_torch.ops import image as imops
+from iqc_tpu_torch.ops.jit_utils import hoisted_jit
 from iqc_tpu_torch.ops.segmentation import SegmentationOutputs, segment_detections
 
 METHOD_NAMES = ("threshold", "adaptive", "watershed", "region_growing")
 # unknown classes get the threshold method: class id 3 (discoloration) carries it
 UNKNOWN_CLASS_ID = 3
+
+
+def _segment_on_device(images: torch.Tensor, boxes: torch.Tensor, cids: torch.Tensor,
+                       valid: torch.Tensor, roi_size: int):
+    """``segment_detections`` of [B,H,W,3] images -> (masks [B,cap,R,R], stats
+    [B,cap,5]: area, perimeter, compactness, confidence, method)."""
+    out = segment_detections(imops.to_float(images), boxes, cids, valid, roi_size=roi_size)
+    stats = torch.stack([out.area, out.perimeter, out.compactness, out.confidence,
+                         out.method.to(torch.float32)], dim=-1)
+    return out.masks, stats
 
 
 class ImageSegmentator:
@@ -36,6 +47,8 @@ class ImageSegmentator:
         self.roi_size = roi_size
         self.device = torch.device(device)
         self.class_names = list(self.config.quality_control.defect_classes)
+        # one CUDA graph per input signature on the card
+        self._jit_segment = hoisted_jit(_segment_on_device)
 
     @staticmethod
     def _empty() -> Dict:
@@ -64,11 +77,9 @@ class ImageSegmentator:
         stats [B,cap,5] (area, perimeter, compactness, confidence, method)."""
         up = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
         with torch.inference_mode():
-            out = segment_detections(imops.to_float(up(images)), up(boxes), up(cids),
-                                     up(valid), roi_size=self.roi_size)
-            stats = torch.stack([out.area, out.perimeter, out.compactness, out.confidence,
-                                 out.method.to(torch.float32)], dim=-1)
-            return out.masks.cpu().numpy(), stats.cpu().numpy()
+            masks, stats = self._jit_segment(up(images), up(boxes), up(cids), up(valid),
+                                             self.roi_size)
+            return masks.cpu().numpy(), stats.cpu().numpy()
 
     def segment_defects(self, image: np.ndarray, detections: List[Dict]) -> Dict:
         """Segment the detections (records with a pixel ``bbox`` and a

@@ -15,6 +15,13 @@ at 1, the detector's class and severity).
 Outputs are packed into two dense tensors (``pack_outputs``) plus the masks
 and segmentation statistics, and fetched to the host in one go.
 
+``EnsemblePredictor`` runs the forward through ``jit_utils.hoisted_jit``, as
+the JAX package runs it under ``hoisted_jit``: the detection-only forward
+(``run``), the same packed (``run_host``) and the full forward
+(``run_full_host``), each a CUDA graph per input signature on the card. The
+thresholds, fusion weights and severity rules are device tensors among the
+inputs, so a new value takes effect at the next replay with no new capture.
+
 Serving precision (``edge.precision``): ``int8`` replaces both networks by
 their int8 forwards (``Int8YOLO``: the int8-resident walk of
 ``yolo_int8_stream`` or the v1 walk of ``yolo_int8``; ``Int8ResNet``:
@@ -49,6 +56,7 @@ from iqc_tpu_torch.models.yolo import (SEVERITY_NAMES, STRIDES, YOLOv8, detectio
                                        feature_shapes)
 from iqc_tpu_torch.ops import image as imops
 from iqc_tpu_torch.ops.boxes import box_area
+from iqc_tpu_torch.ops.jit_utils import hoisted_jit
 from iqc_tpu_torch.ops.nms import Detections, decode_and_nms, make_anchors
 from iqc_tpu_torch.ops.segmentation import CLASS_TO_METHOD, segment_rois, table_lookup
 from iqc_tpu_torch.weights import load_into, load_or_init, to_flax
@@ -153,9 +161,11 @@ class FullForward(nn.Module):
         conf, cls = torch.max(probs, dim=-1)
         return conf, cls.to(torch.int32)
 
-    def ensemble(self, x: torch.Tensor, conf_t, iou_t: float, w_yolo: float,
-                 w_resnet: float, sev_rules: Optional[torch.Tensor] = None) -> EnsembleOutputs:
-        """Detection, classification and fusion on float images [B,H,W,3]."""
+    def ensemble(self, x: torch.Tensor, conf_t, iou_t, w_yolo, w_resnet,
+                 sev_rules: Optional[torch.Tensor] = None) -> EnsembleOutputs:
+        """Detection, classification and fusion on float images [B,H,W,3].
+        ``conf_t`` (a scalar or [C] per-class floors), ``iou_t``, ``w_yolo``
+        and ``w_resnet`` are floats or float32 tensors on the device."""
         b = x.shape[0]
         kc, ci = self.max_classified, self.classifier_input
 
@@ -228,8 +238,8 @@ class FullForward(nn.Module):
             image_confidence=img_conf,
         )
 
-    def forward(self, images: torch.Tensor, conf_t, iou_t: float, w_yolo: float,
-                w_resnet: float, sev_rules: Optional[torch.Tensor] = None):
+    def forward(self, images: torch.Tensor, conf_t, iou_t, w_yolo, w_resnet,
+                sev_rules: Optional[torch.Tensor] = None):
         """images [B,H,W,3] uint8 or float -> (det [B,K,15], img [B,4+C],
         masks [B,S,R,R] bool, seg_stats [B,S,5])."""
         x = self._input(images)
@@ -393,13 +403,19 @@ class EnsemblePredictor:
         self._counter_lock = threading.Lock()
         self.crop_classified_total = 0
         self.mock_tail_total = 0
-        self._forward_full = FullForward(
+        # (values, device tensors) of the last _args
+        self._scalar_cache: Optional[Tuple] = None
+        fwd = self.full_forward = FullForward(
             self.yolo, self.resnet, self.input_size, self.max_detections,
             self.max_classified, classifier_input=m.classifier_input,
             max_segmented=m.max_segmented, roi_size=m.seg_roi_size,
             crop_pool=m.max_classified_pool, seg_pool=m.max_segmented_pool,
             compute_dtype=self.compute_dtype,
         ).to(self.device).eval()
+        self._forward = hoisted_jit(lambda images, *a: fwd.ensemble(fwd._input(images), *a))
+        self._forward_packed = hoisted_jit(
+            lambda images, *a: pack_outputs(fwd.ensemble(fwd._input(images), *a)))
+        self._forward_full = hoisted_jit(fwd)
 
     # -- int8 serving ------------------------------------------------------------
 
@@ -499,9 +515,11 @@ class EnsemblePredictor:
         if self.resnet_vars is None or (self.yolo_vars is None
                                         and self._yolo_walk != "weight-only"):
             return
-        fwd = getattr(self, "_forward_full", None)
+        fwd = getattr(self, "full_forward", None)
         if fwd is not None:
             fwd.yolo, fwd.resnet = self.yolo, self.resnet
+            for jitted in (self._forward, self._forward_packed, self._forward_full):
+                jitted.clear()  # the graphs read the networks they replaced
         q_bytes = resnet_int8.tree_size_bytes(self.resnet_vars["q"])
         v1_mode = "true-int8 MXU (static calibrated activations)"
         stream_mode = "true-int8 MXU, int8-resident activations (streaming v2)"
@@ -557,34 +575,42 @@ class EnsemblePredictor:
 
     def _args(self):
         """(conf_t, iou_t, w_yolo, w_resnet, sev_rules) for the forward, with
-        the qc_specific overrides applied. Read from the predictor on every
-        call, so a change takes effect at the next request with no rebuild."""
+        the qc_specific overrides applied, as float32 tensors on the device
+        (sev_rules None when unset). Read from the predictor on every call,
+        so a change takes effect at the next request with no rebuild; the
+        tensors are made again only when a value changed (each is a copy to
+        the device)."""
         with self.params_lock:
             qc = self.config.qc_specific
             conf, nms, weights = (self.confidence_threshold, self.nms_threshold,
                                   self.ensemble_weights)
         conf_vec = qc.conf_vector(self.class_names, conf)
-        conf_t = (torch.tensor(conf_vec, dtype=torch.float32, device=self.device)
-                  if conf_vec else conf)
         nms_t = qc.nms_threshold if qc.nms_threshold is not None else nms
         sev = qc.severity_array()
-        sev_t = torch.tensor(sev, dtype=torch.float32, device=self.device) if sev else None
-        return (conf_t, float(nms_t), float(weights["yolo"]), float(weights["resnet"]), sev_t)
+        key = (tuple(conf_vec) if conf_vec else float(conf), float(nms_t),
+               float(weights["yolo"]), float(weights["resnet"]),
+               tuple(map(tuple, sev)) if sev else None)
+        cached = self._scalar_cache
+        if cached is None or cached[0] != key:
+            t = lambda v: torch.tensor(v, dtype=torch.float32, device=self.device)
+            cached = (key, tuple(None if v is None else t(v) for v in key))
+            self._scalar_cache = cached
+        return cached[1]
 
     def run(self, images) -> EnsembleOutputs:
         """The detection-only forward (detection, crop classification,
         fusion) on a [B,H,W,3] batch (tensor or numpy); tensors out, on the
         device."""
         x = torch.as_tensor(images).to(self.device)
-        fwd = self._forward_full
         with torch.inference_mode():
-            return fwd.ensemble(fwd._input(x), *self._args())
+            return self._forward(x, *self._args())
 
     def run_host(self, images) -> EnsembleOutputs:
         """``run`` packed into two tensors and fetched to the host in one go;
         numpy out."""
+        x = torch.as_tensor(images).to(self.device)
         with torch.inference_mode():
-            det, img = pack_outputs(self.run(images))
+            det, img = self._forward_packed(x, *self._args())
             return unpack_outputs(det.cpu().numpy(), img.cpu().numpy())
 
     def run_full_host(self, images):

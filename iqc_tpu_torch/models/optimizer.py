@@ -10,9 +10,10 @@ port's modules (``weights.load_into``), never the modules' OIHW tensors.
   bfloat16); ``quantize_int8`` / ``dequantize_int8``: per-tensor symmetric
   weight-only int8 of every float leaf, BatchNorm statistics included;
 - ``prune_magnitude``: magnitude pruning, unstructured or by output channel;
-- ``aot_compile``: the engine build: a CUDA graph of the function captured
-  at the sample's shapes on the card (eager on the CPU), with its capture
-  seconds and its floating-point operations (``torch.utils.flop_counter``);
+- ``aot_compile``: the engine build on ``jit_utils.HoistedJit``: a CUDA
+  graph of the function captured at the sample's shapes on the card (eager
+  on the CPU), with its build seconds and its floating-point operations
+  (``torch.utils.flop_counter``);
 - ``EngineOptimizer``: the JAX package's ``XLAOptimizer`` facade.
 """
 
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from iqc_tpu_torch.models.resnet_int8 import tree_size_bytes
+from iqc_tpu_torch.ops.jit_utils import HoistedJit
 from iqc_tpu_torch.weights import save_variables
 
 PRECISIONS = ("fp32", "bf16", "int8")
@@ -155,63 +157,48 @@ def prune_magnitude(params: Any, sparsity: float, structured: bool = False,
 
 @dataclasses.dataclass
 class CompiledModel:
-    """A function captured for fixed input shapes. On the card ``__call__``
-    copies its tensor arguments into the captured inputs, replays the CUDA
-    graph and returns copies of its outputs; the graph keeps what the
-    function read from its other arguments at capture. On the CPU it calls
-    the function."""
+    """A function built for fixed input shapes (``aot_compile``). On the card
+    ``__call__`` replays the CUDA graph captured for the sample's tensor
+    arguments (``jit_utils.HoistedJit``): it copies the tensor arguments in
+    and returns copies of the outputs, and raises ValueError on other
+    shapes; the graph keeps what the function read from its other arguments
+    at capture. On the CPU it calls the function."""
 
     fn: Callable
     compile_seconds: float
     flops: Optional[float]
     bytes_accessed: Optional[float]
     graph: Any = None
-    static_args: Tuple = ()
-    static_out: Any = None
+    replay: Optional[Callable] = None
 
     def __call__(self, *args):
-        if self.graph is None:
+        if self.replay is None:
             return self.fn(*args)
-        with torch.inference_mode():  # the captured inputs are inference tensors
-            for slot, a in zip(self.static_args, args):
-                if isinstance(slot, torch.Tensor):
-                    if tuple(a.shape) != tuple(slot.shape):
-                        raise ValueError(f"captured for shape {tuple(slot.shape)}, "
-                                         f"called with {tuple(a.shape)}")
-                    slot.copy_(a)
-            self.graph.replay()
-            return _map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
-                        self.static_out)
+        return self.replay(*(a for a in args if isinstance(a, torch.Tensor)))
 
 
 def aot_compile(fn: Callable, *sample_args) -> CompiledModel:
-    """Build ``fn`` for the shapes of ``sample_args``: on the card, a warm-up
-    call on a side stream and a CUDA graph of one call; on the CPU, nothing.
-    Counts the floating-point operations of one call either way (2 per
-    multiply-add of convolutions and matrix products)."""
-    from torch.utils.flop_counter import FlopCounterMode
-
+    """Build ``fn`` for the shapes of ``sample_args`` through
+    ``jit_utils.HoistedJit.aot_compile`` over its tensor arguments: on the
+    card, a warm-up call on a side stream and a CUDA graph of one call; on
+    the CPU, nothing. Counts the floating-point operations of one call
+    either way (2 per multiply-add of convolutions and matrix products)."""
     t0 = time.perf_counter()
-    with torch.inference_mode():
-        with FlopCounterMode(display=False) as counter:
-            fn(*sample_args)
-        flops = float(counter.get_total_flops()) or None
-        on_card = any(isinstance(a, torch.Tensor) and a.is_cuda for a in sample_args)
-        if not on_card:
-            return CompiledModel(fn=fn, compile_seconds=time.perf_counter() - t0,
-                                 flops=flops, bytes_accessed=None)
-        static = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in sample_args)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn(*static)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = fn(*static)
-        torch.cuda.synchronize()
-    return CompiledModel(fn=fn, compile_seconds=time.perf_counter() - t0, flops=flops,
-                         bytes_accessed=None, graph=graph, static_args=static, static_out=out)
+    positions = [i for i, a in enumerate(sample_args) if isinstance(a, torch.Tensor)]
+
+    def with_tensors(*tensors):
+        args = list(sample_args)
+        for i, t in zip(positions, tensors):
+            args[i] = t
+        return fn(*args)
+
+    jitted = HoistedJit(with_tensors)
+    replay, cost = jitted.aot_compile(*(sample_args[i] for i in positions))
+    captured = jitted.captures()
+    return CompiledModel(fn=fn, compile_seconds=time.perf_counter() - t0,
+                         flops=cost["flops"] or None, bytes_accessed=None,
+                         graph=captured[0].graph if captured else None,
+                         replay=replay if captured else None)
 
 
 class EngineOptimizer:

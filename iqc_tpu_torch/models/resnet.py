@@ -26,6 +26,7 @@ from torch import nn
 from iqc_tpu_torch.models.layers import BatchNorm, conv2d, exact_float32
 from iqc_tpu_torch.models.yolo import SEVERITY_NAMES
 from iqc_tpu_torch.ops import image as imops
+from iqc_tpu_torch.ops.jit_utils import hoisted_jit
 
 
 def _same_pad(size: int, kernel: int, stride: int):
@@ -162,19 +163,28 @@ class ResNetClassifier:
         self.module = ResNet50(num_classes=num_classes, dtype=dtype)
         self.weights_source = load_or_init(self.module, model_path, seed)
         self.module.to(self.device).eval()
+        # one CUDA graph per input signature on the card
+        self._jit_forward = hoisted_jit(self._device_forward)
+        self._jit_features = hoisted_jit(self._device_features)
 
     def _upload(self, images) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(images)).to(self.device)
 
+    def _device_forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = preprocess_for_classifier(images, self.INPUT_SIZE)
+        probs = torch.softmax(self.module(x).to(torch.float32), dim=-1)
+        conf = torch.amax(probs, dim=-1)
+        cls = torch.argmax(probs, dim=-1).to(torch.int32)
+        return {"probs": probs, "confidence": conf, "class_id": cls,
+                "severity": classifier_severity(cls, conf)}
+
+    def _device_features(self, images: torch.Tensor) -> torch.Tensor:
+        x = preprocess_for_classifier(images, self.INPUT_SIZE)
+        return self.module(x, return_features=True)
+
     def _forward(self, images: torch.Tensor) -> Dict[str, np.ndarray]:
         with torch.inference_mode():
-            x = preprocess_for_classifier(images, self.INPUT_SIZE)
-            probs = torch.softmax(self.module(x).to(torch.float32), dim=-1)
-            conf = torch.amax(probs, dim=-1)
-            cls = torch.argmax(probs, dim=-1).to(torch.int32)
-            sev = classifier_severity(cls, conf)
-            return {k: v.cpu().numpy() for k, v in
-                    (("probs", probs), ("confidence", conf), ("class_id", cls), ("severity", sev))}
+            return {k: v.cpu().numpy() for k, v in self._jit_forward(images).items()}
 
     def _record(self, out: Dict[str, np.ndarray], i: int) -> Dict:
         return {
@@ -210,8 +220,7 @@ class ResNetClassifier:
     def extract_features(self, image: np.ndarray) -> np.ndarray:
         """The 2048 pooled backbone features of one image."""
         with torch.inference_mode():
-            x = preprocess_for_classifier(self._upload(image)[None], self.INPUT_SIZE)
-            return self.module(x, return_features=True)[0].cpu().numpy()
+            return self._jit_features(self._upload(image)[None])[0].cpu().numpy()
 
     def get_model_info(self) -> Dict:
         return {

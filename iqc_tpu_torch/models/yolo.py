@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from iqc_tpu_torch.models.layers import BatchNorm, conv2d, exact_float32, silu
+from iqc_tpu_torch.ops.jit_utils import hoisted_jit
 
 STRIDES = (8, 16, 32)
 
@@ -262,6 +263,9 @@ class YOLODetector:
         self.module.to(self.device).eval()
         self._anchors, self._strides = make_anchors(feature_shapes(self.input_size), STRIDES,
                                                     device=self.device)
+        # one CUDA graph per input signature on the card; the thresholds are
+        # among its inputs
+        self._jit_forward = hoisted_jit(self._device_forward)
 
     def _conf_value(self):
         """A [C] tensor of per-class floors where they are set, else the scalar."""
@@ -270,27 +274,31 @@ class YOLODetector:
                                 device=self.device)
         return float(self.confidence_threshold)
 
-    def _forward(self, images: torch.Tensor):
-        """[B,H,W,3] uint8 or float -> host (boxes, scores, classes, valid,
-        severities) at the model input's resolution."""
+    def _device_forward(self, images: torch.Tensor, conf, iou, box_voting: bool,
+                        sev_rules: Optional[torch.Tensor]):
+        """[B,H,W,3] uint8 or float -> (boxes, scores, classes, valid,
+        severities) on the device, at the model input's resolution."""
         from iqc_tpu_torch.ops import image as imops
         from iqc_tpu_torch.ops.boxes import box_area
         from iqc_tpu_torch.ops.nms import decode_and_nms
 
+        x = imops.to_float(images)
+        if tuple(x.shape[1:3]) != self.input_size:
+            x = imops.resize_bilinear(x, self.input_size)
+        dist, cls = self.module(x)
+        det = decode_and_nms(dist, cls, self._anchors, self._strides,
+                             reg_max=self.module.reg_max, max_detections=self.max_detections,
+                             iou_threshold=iou, score_threshold=conf, box_voting=box_voting)
+        sev = detection_severity(det.scores, box_area(det.boxes), sev_rules)
+        return det.boxes, det.scores, det.classes, det.valid, sev
+
+    def _forward(self, images: torch.Tensor):
+        """[B,H,W,3] uint8 or float -> host (boxes, scores, classes, valid,
+        severities) at the model input's resolution."""
         with torch.inference_mode():
-            x = imops.to_float(images)
-            if tuple(x.shape[1:3]) != self.input_size:
-                x = imops.resize_bilinear(x, self.input_size)
-            dist, cls = self.module(x)
-            det = decode_and_nms(dist, cls, self._anchors, self._strides,
-                                 reg_max=self.module.reg_max,
-                                 max_detections=self.max_detections,
-                                 iou_threshold=float(self.nms_threshold),
-                                 score_threshold=self._conf_value(),
-                                 box_voting=self.box_voting)
-            sev = detection_severity(det.scores, box_area(det.boxes), self._sev_rules)
-            return tuple(t.cpu().numpy() for t in (det.boxes, det.scores, det.classes,
-                                                   det.valid, sev))
+            out = self._jit_forward(images, self._conf_value(), float(self.nms_threshold),
+                                    self.box_voting, self._sev_rules)
+            return tuple(t.cpu().numpy() for t in out)
 
     def _upload(self, images) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(images)).to(self.device)

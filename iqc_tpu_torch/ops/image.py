@@ -9,8 +9,11 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from iqc_tpu_torch.ops.jit_utils import device_constant
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -25,9 +28,9 @@ def to_float(image: torch.Tensor) -> torch.Tensor:
 
 def normalize_imagenet(image: torch.Tensor) -> torch.Tensor:
     """(x - mean) * (1/std) per RGB channel, in the JAX package's order."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=image.dtype, device=image.device)
-    inv_std = torch.tensor([1.0 / s for s in IMAGENET_STD], dtype=image.dtype,
-                           device=image.device)
+    mean = device_constant(np.float32(IMAGENET_MEAN), image.device, image.dtype)
+    inv_std = device_constant(np.float32([1.0 / s for s in IMAGENET_STD]), image.device,
+                              image.dtype)
     return (image - mean) * inv_std
 
 
@@ -211,12 +214,14 @@ def _conv3x3(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return y.reshape(*lead, h, w)
 
 
+SOBEL_X = np.float32([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]])
+
+
 def sobel_magnitude(x: torch.Tensor) -> torch.Tensor:
     """Sobel gradient magnitude of [..., H, W] (zero padding)."""
-    kx = torch.tensor([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]],
-                      device=x.device)
+    kx = device_constant(SOBEL_X, x.device)
     gx = _conv3x3(x, kx)
-    gy = _conv3x3(x, kx.t().contiguous())
+    gy = _conv3x3(x, device_constant(SOBEL_X.T, x.device))
     return torch.sqrt(gx * gx + gy * gy)
 
 

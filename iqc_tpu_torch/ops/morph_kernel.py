@@ -1,11 +1,13 @@
-"""ROI morphology tails: the plain PyTorch versions and the CUDA kernels'
-wrappers.
+"""ROI morphology tails: the plain PyTorch versions and the CUDA kernels, as
+the custom ops ``iqc::grow_clean`` and ``iqc::clean``.
 
 ``grow_clean`` is the port of ``iqc_tpu/ops/pallas_morph.py::_grow_clean_kernel``
-and ``clean`` of ``_clean_kernel``; both launch ``csrc/morph.cu``. For a CPU
-tensor they run the plain versions; for a CUDA tensor they launch the kernel
-(or raise), and add one to ``LAUNCHES`` per launch (under ``LAUNCHES_LOCK``,
-as requests run from several threads).
+and ``clean`` of ``_clean_kernel``; both launch ``csrc/morph.cu``. Each op's
+CPU implementation is the plain version and its CUDA implementation
+launches the kernel, so dispatch picks one by the masks' device; the
+iteration counts are static ints. Each launch adds one to ``LAUNCHES``
+(under ``LAUNCHES_LOCK``, as requests run from several threads), or, during
+a graph capture, to each replay of the graph (``jit_utils.count_launch``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from iqc_tpu_torch import build
 from iqc_tpu_torch.ops import image as imops
+from iqc_tpu_torch.ops.jit_utils import count_launch
 
 LAUNCHES = {"grow_clean": 0, "clean": 0}
 LAUNCHES_LOCK = threading.Lock()
@@ -67,29 +70,61 @@ def _prepared(mask: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(name: str, inputs, *ints: int) -> torch.Tensor:
+    inputs = [_prepared(x) for x in inputs]
     out = torch.empty_like(inputs[0], memory_format=torch.contiguous_format)
     if out.shape[0] == 0:
         return out
     build.launch(build.library().fns[name], out.device, *(x.data_ptr() for x in inputs),
                  out.data_ptr(), out.shape[0], out.shape[1], *ints)
-    with LAUNCHES_LOCK:
-        LAUNCHES[name[4:]] += 1
+    count_launch(LAUNCHES, LAUNCHES_LOCK, name[4:])
     return out
+
+
+@torch.library.custom_op("iqc::grow_clean", mutates_args=(), device_types="cpu")
+def grow_clean_op(seeds: torch.Tensor, allow: torch.Tensor, grow_iterations: int,
+                  fill_iterations: int) -> torch.Tensor:
+    """[N,R,R] bool seeds and allow -> [N,R,R] bool: the plain version on the
+    CPU, the kernel on the card."""
+    out = grow_clean_plain(seeds.bool(), allow.bool(), grow_iterations, fill_iterations)
+    return out.clone() if out is seeds else out  # an op's output aliases no input
+
+
+@grow_clean_op.register_kernel("cuda")
+def _grow_clean_cuda(seeds, allow, grow_iterations, fill_iterations):
+    return _launch("iqc_grow_clean", (seeds, allow), int(grow_iterations),
+                   int(fill_iterations))
+
+
+@grow_clean_op.register_fake
+def _grow_clean_fake(seeds, allow, grow_iterations, fill_iterations):
+    return seeds.new_empty(seeds.shape, dtype=torch.bool)
+
+
+@torch.library.custom_op("iqc::clean", mutates_args=(), device_types="cpu")
+def clean_op(mask: torch.Tensor, fill_iterations: int) -> torch.Tensor:
+    """[N,R,R] bool -> cleaned [N,R,R] bool: the plain version on the CPU,
+    the kernel on the card."""
+    return clean_plain(mask.bool(), fill_iterations)
+
+
+@clean_op.register_kernel("cuda")
+def _clean_cuda(mask, fill_iterations):
+    return _launch("iqc_clean", (mask,), int(fill_iterations))
+
+
+@clean_op.register_fake
+def _clean_fake(mask, fill_iterations):
+    return mask.new_empty(mask.shape, dtype=torch.bool)
 
 
 def grow_clean(seeds: torch.Tensor, allow: torch.Tensor, grow_iterations: int = 24,
                fill_iterations: int = 16) -> torch.Tensor:
     """[N,R,R] bool seeds and allow -> [N,R,R] bool mask."""
     _check(seeds, allow)
-    if seeds.device.type == "cpu":
-        return grow_clean_plain(seeds.bool(), allow.bool(), grow_iterations, fill_iterations)
-    return _launch("iqc_grow_clean", (_prepared(seeds), _prepared(allow)),
-                   int(grow_iterations), int(fill_iterations))
+    return grow_clean_op(seeds, allow, int(grow_iterations), int(fill_iterations))
 
 
 def clean(mask: torch.Tensor, fill_iterations: int = 16) -> torch.Tensor:
     """[N,R,R] bool -> cleaned [N,R,R] bool."""
     _check(mask)
-    if mask.device.type == "cpu":
-        return clean_plain(mask.bool(), fill_iterations)
-    return _launch("iqc_clean", (_prepared(mask),), int(fill_iterations))
+    return clean_op(mask, int(fill_iterations))

@@ -6,6 +6,11 @@ score (ties keep the lower anchor index first), suppressed by
 ``nms_kernel.suppress`` for a fixed number of rounds, optionally merged by
 score x IoU weighted box voting, compacted to the front in score order and
 padded back to ``max_detections`` slots.
+
+The IoU and score thresholds are Python floats or tensors on the boxes'
+device (0-d, or [C] per-class score floors). Nothing here builds a tensor
+from a host value, so a captured forward reads the thresholds its inputs
+hold at each replay.
 """
 
 from __future__ import annotations
@@ -65,12 +70,14 @@ def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
 
 
+Threshold = Union[float, torch.Tensor]
+
+
 def _nms(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
-         passed: torch.Tensor, max_detections: int, iou_threshold: float,
+         passed: torch.Tensor, max_detections: int, iou_threshold: Threshold,
          class_aware: bool, iterations: int, box_voting: bool) -> Detections:
     """NMS over a batch: boxes [B,A,4], scores [B,A], classes [B,A] int32,
     passed [B,A] bool (candidates that cleared the score floor)."""
-    dev = boxes.device
     s = torch.where(passed, scores, torch.full_like(scores, -1.0))
     pool = min(max_detections, s.shape[-1])
     order = torch.sort(s, dim=-1, descending=True, stable=True).indices[:, :pool]
@@ -89,9 +96,8 @@ def _nms(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
     if box_voting:
         # candidate j votes for kept box i with weight score_j * iou(i,j),
         # gated at the NMS threshold; a kept box votes for itself
-        t = torch.tensor(iou_threshold, dtype=torch.float32, device=dev)
         iou = iou_matrix(iou_boxes, iou_boxes)
-        w = torch.where((iou >= t) & cand_valid[:, None, :],
+        w = torch.where((iou >= iou_threshold) & cand_valid[:, None, :],
                         top_scores[:, None, :] * iou, torch.zeros_like(iou))
         voted = torch.bmm(w, top_boxes)
         voted = voted / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
@@ -118,13 +124,12 @@ def _nms(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
 
 
 def nms_single(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
-               mask: torch.Tensor, max_detections: int, iou_threshold: float,
-               score_threshold: float, class_aware: bool = True, iterations: int = 16,
+               mask: torch.Tensor, max_detections: int, iou_threshold: Threshold,
+               score_threshold: Threshold, class_aware: bool = True, iterations: int = 16,
                box_voting: bool = False) -> Detections:
     """NMS of one image: boxes [A,4], scores [A], classes [A], mask [A] bool
     (pre-filter). Returns Detections of [K] slots, score-descending."""
-    t = torch.tensor(score_threshold, dtype=torch.float32, device=boxes.device)
-    passed = mask & (scores > t)
+    passed = mask & (scores > score_threshold)
     det = _nms(boxes[None].to(torch.float32), scores[None].to(torch.float32),
                classes[None].to(torch.int32), passed[None], max_detections,
                iou_threshold, class_aware, iterations, box_voting)
@@ -132,7 +137,7 @@ def nms_single(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
 
 
 def batched_nms(boxes: torch.Tensor, scores_all: torch.Tensor, max_detections: int,
-                iou_threshold: float, score_threshold: Union[float, torch.Tensor],
+                iou_threshold: Threshold, score_threshold: Threshold,
                 class_aware: bool = True, iterations: int = 16,
                 box_voting: bool = False) -> Detections:
     """Class-aware NMS of boxes [B,A,4] with per-class scores [B,A,C].
@@ -142,16 +147,16 @@ def batched_nms(boxes: torch.Tensor, scores_all: torch.Tensor, max_detections: i
     """
     scores, classes = torch.max(scores_all, dim=-1)
     classes = classes.to(torch.int32)
-    thr = torch.as_tensor(score_threshold, dtype=torch.float32, device=boxes.device)
-    passed = scores > (thr[classes.long()] if thr.dim() == 1 else thr)
+    per_class = isinstance(score_threshold, torch.Tensor) and score_threshold.dim() == 1
+    passed = scores > (score_threshold[classes.long()] if per_class else score_threshold)
     return _nms(boxes, scores, classes, passed, max_detections, iou_threshold,
                 class_aware, iterations, box_voting)
 
 
 def decode_and_nms(dist_logits: torch.Tensor, cls_logits: torch.Tensor,
                    anchor_points: torch.Tensor, strides: torch.Tensor, reg_max: int,
-                   max_detections: int, iou_threshold: float,
-                   score_threshold: Union[float, torch.Tensor],
+                   max_detections: int, iou_threshold: Threshold,
+                   score_threshold: Threshold,
                    iterations: int = 16, box_voting: bool = False) -> Detections:
     """DFL decode -> sigmoid scores -> class-aware NMS.
     dist_logits [B,A,4*reg_max]; cls_logits [B,A,C]."""

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from iqc_tpu_torch.ops import image as imops
+from iqc_tpu_torch.ops.jit_utils import device_constant
 from iqc_tpu_torch.ops.morph_kernel import clean, grow_clean
 
 METHOD_THRESHOLD, METHOD_ADAPTIVE, METHOD_WATERSHED, METHOD_REGION_GROWING = 0, 1, 2, 3
@@ -41,8 +42,9 @@ FILL_ITERATIONS = 16
 
 
 def table_lookup(table: np.ndarray, idx: torch.Tensor) -> torch.Tensor:
-    """``table[idx]`` for a per-class numpy table and a class-id tensor."""
-    return torch.as_tensor(table, device=idx.device)[idx.long()]
+    """``table[idx]`` for a per-class numpy table and a class-id tensor; the
+    table is placed on the device once (``device_constant``)."""
+    return device_constant(table, idx.device)[idx.long()]
 
 
 class SegmentationOutputs(NamedTuple):

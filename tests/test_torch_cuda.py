@@ -158,11 +158,12 @@ def test_suppress_entry_point_writes_only_its_output(cuda, batch, k, iterations)
     the kernel timing does, writes its keep mask and no byte beside it."""
     boxes = _boxes(batch, k, seed=k).to(cuda)
     buf, keep = _guarded((batch, k), cuda)
+    threshold = torch.tensor(0.5, device=cuda)
     fn = build.library().fns["iqc_suppress"]
 
     def launch():
-        build.launch(fn, boxes.device, boxes.data_ptr(), keep.data_ptr(), batch, k, 0.5,
-                     iterations)
+        build.launch(fn, boxes.device, boxes.data_ptr(), threshold.data_ptr(), keep.data_ptr(),
+                     batch, k, iterations)
 
     launch()
     _in_graph_replays(launch)
@@ -396,3 +397,156 @@ def test_engine_graph_replay_equals_eager(cuda):
         want = net(x)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# -- captured forwards, run-time thresholds and export --------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [0.3, 0.45, 0.7])
+@pytest.mark.parametrize("batch,k,iterations", [(1, 300, 16), (8, 300, 16), (3, 512, 40),
+                                                (2, 1, 16)])
+def test_suppress_reads_its_threshold_at_run_time(cuda, threshold, batch, k, iterations):
+    """The raw entry point captured in a CUDA graph at threshold 0.5, its
+    threshold tensor then set to `threshold`: the replays equal the plain
+    version at `threshold` and write no byte beside the keep mask."""
+    boxes = _boxes(batch, k, seed=k + 1).to(cuda)
+    buf, keep = _guarded((batch, k), cuda)
+    t = torch.tensor(0.5, device=cuda)
+    fn = build.library().fns["iqc_suppress"]
+
+    def launch():
+        build.launch(fn, boxes.device, boxes.data_ptr(), t.data_ptr(), keep.data_ptr(), batch, k,
+                     iterations)
+
+    launch()
+    torch.cuda.synchronize()
+    assert torch.equal(keep.cpu().bool(), nms_kernel.suppress_plain(boxes.cpu(), 0.5, iterations))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        launch()
+    t.fill_(threshold)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert _guards_intact(buf)
+    want = nms_kernel.suppress_plain(boxes.cpu(), threshold, iterations)
+    assert torch.equal(keep.cpu().bool(), want)
+    got = nms_kernel.suppress(boxes, torch.tensor(threshold, device=cuda), iterations)
+    assert torch.equal(got.cpu(), want)
+
+
+def _eager_and_captured(det, frames):
+    """(captured first call, captured replay, eager) run_full_host outputs
+    of the detector's preprocessed frames."""
+    from iqc_tpu_torch.ops import jit_utils
+
+    ens = det.ensemble_predictor
+    x = det._preprocess(frames)
+    first, again = ens.run_full_host(x), ens.run_full_host(x)
+    with jit_utils.eager():
+        want = ens.run_full_host(x)
+    return first, again, want
+
+
+def _assert_close(got, want, box_tol, score_tol):
+    (g, gm, gs), (w, wm, ws) = got, want
+    v = w.valid
+    assert np.array_equal(g.valid, v) and v.any()
+    for f in ("classes", "final_severity", "crop_class"):
+        assert np.array_equal(getattr(g, f)[v], getattr(w, f)[v]), f
+    assert np.array_equal(g.severity_counts, w.severity_counts)
+    assert np.abs(g.boxes[v] - w.boxes[v]).max() <= box_tol
+    assert np.abs(g.yolo_scores[v] - w.yolo_scores[v]).max() <= score_tol
+    assert np.abs(g.ensemble_conf[v] - w.ensemble_conf[v]).max() <= score_tol
+    assert float(np.mean(gm == wm)) >= 0.999
+    assert np.array_equal(gs[..., 4], ws[..., 4])
+
+
+FP32 = {"edge": {"precision": "fp32"}, "model": {"compute_dtype": "float32"}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["int8", "fp32"])
+def test_captured_forward_equals_eager(cuda, precision):
+    """The full forward replayed from its CUDA graph (the first call, which
+    captures, and a replay) against the same forward run eagerly: int8
+    decisions equal, boxes within 1 px, scores within 1e-3; float32 boxes
+    within 1e-2 px, scores within 1e-4; masks on 99.9% of pixels."""
+    from iqc_tpu_torch.inference.detector import QualityControlDetector
+
+    det = QualityControlDetector(config=_option_config(FP32 if precision == "fp32" else {}),
+                                 device="cuda")
+    frames = torch.from_numpy(_frames(2, seed=5)).to(cuda)
+    first, again, want = _eager_and_captured(det, frames)
+    tol = (1.0, 1e-3) if precision == "int8" else (1e-2, 1e-4)
+    _assert_close(first, want, *tol)
+    _assert_close(again, want, *tol)
+    assert len(det.ensemble_predictor._forward_full.captures()) == 1
+
+
+@pytest.mark.cuda
+def test_update_config_between_replays_needs_no_capture(cuda):
+    """New thresholds and fusion weights reach the next replay: it equals
+    eager at the new values, and no graph is captured anew."""
+    from iqc_tpu_torch.inference.detector import QualityControlDetector
+
+    det = QualityControlDetector(config=_option_config({}), device="cuda")
+    fwd = det.ensemble_predictor._forward_full
+    frames = torch.from_numpy(_frames(2, seed=6)).to(cuda)
+    _eager_and_captured(det, frames)
+    graphs = len(fwd.captures())
+    det.update_config({"model": {"confidence_threshold": 0.1, "nms_threshold": 0.3,
+                                 "ensemble_weights": {"yolo": 0.3, "resnet": 0.7}}})
+    _, again, want = _eager_and_captured(det, frames)
+    _assert_close(again, want, 1.0, 1e-3)
+    assert len(fwd.captures()) == graphs
+
+
+@pytest.mark.cuda
+def test_replays_count_the_kernels_they_launch(cuda):
+    """K1-K3 counted through a capture and replays: one eager call's counts
+    times the number of calls."""
+    from iqc_tpu_torch.inference.detector import QualityControlDetector
+    from iqc_tpu_torch.ops import jit_utils
+
+    def counts():
+        return {**nms_kernel.LAUNCHES, **morph_kernel.LAUNCHES}
+
+    det = QualityControlDetector(config=_option_config({}), device="cuda")
+    ens = det.ensemble_predictor
+    x = det._preprocess(torch.from_numpy(_frames(2, seed=7)).to(cuda))
+    before = counts()
+    with jit_utils.eager():
+        ens.run_full_host(x)
+    one = {k: v - before[k] for k, v in counts().items()}
+    assert all(v > 0 for v in one.values())
+    before = counts()
+    for _ in range(4):
+        ens.run_full_host(x)
+    assert {k: v - before[k] for k, v in counts().items()} == {k: 4 * v for k, v in one.items()}
+
+
+@pytest.mark.cuda
+def test_export_and_reload_on_the_card(cuda, tmp_path):
+    """The int8 predictor exported at batch 1 on the card and reloaded: the
+    program holds iqc.suppress, launches K1 once a call and equals live
+    ``run``."""
+    from iqc_tpu_torch.inference.detector import QualityControlDetector
+    from iqc_tpu_torch.models.export import export_ensemble, load_exported
+
+    ens = QualityControlDetector(config=_option_config({}), device="cuda").ensemble_predictor
+    path = str(tmp_path / "ensemble.iqc")
+    meta = export_ensemble(ens, path, batch_size=1)
+    assert meta["device"].startswith("cuda") and meta["precision"] == "int8"
+    engine = load_exported(path, device="cuda")
+    assert "iqc.suppress" in str(engine.program.graph)
+    frame = _frames(1, seed=8)
+    before = nms_kernel.LAUNCHES["suppress"]
+    out = engine.outputs(frame)
+    assert nms_kernel.LAUNCHES["suppress"] == before + 1
+    live = ens.run_host(frame)
+    assert np.array_equal(out.valid, live.valid) and live.valid.any()
+    v = live.valid
+    assert np.array_equal(out.classes[v], live.classes[v])
+    assert np.abs(out.boxes[v] - live.boxes[v]).max() <= 1.0
