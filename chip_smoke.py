@@ -58,7 +58,18 @@ Phases, each under a deadline and printed with its wall time:
      replays against one eager call's; the int8 predictor exported at batch
      1 on the card (torch.export, iqc_tpu_torch/models/export.py), reloaded
      and held against live run; K1's guard regions at run-time thresholds
-     0.3, 0.45 and 0.7.
+     0.3, 0.45 and 0.7;
+ 11. training: `python -m iqc_tpu_torch.train.train_yolo --synthetic --epochs 1
+     --config <the yolo_config.yaml profile as JSON>` in a process of its own
+     (YOLOv8n 640^2, batch 16, bfloat16, device mosaic 1.0 and the
+     augmentation block, class weights; 16 steps on the device corpus, then
+     validation through K1 at [16,100,4]), its checkpoint in a temporary
+     directory, served by YOLODetector card against CPU; train-step ms and
+     images/s at bf16 and fp32 (median of 10 after 3), one profiled step
+     (kernels, device ms, idle share), peak memory, validation ms per batch;
+     two float32 steps and one bf16 step at batch 2 card against CPU from the
+     same state and draws; K1 at [16,100,4] and [16,84,4], threshold 0.6,
+     between guard regions, with its device, wrapper, plain and bound ms.
 Then one JSON line of kernel measurements, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits nonzero without that line.
 Needs one CUDA device; exits nonzero at once without one.
@@ -310,14 +321,14 @@ def profiler_ms(torch, fn, kernel, iters=20):
     return total / count / 1e3 if count and total > 0 else None
 
 
-def suppress_rounds(torch, boxes, iterations):
+def suppress_rounds(torch, boxes, iterations, threshold=THRESHOLD):
     """Rounds each image runs with the early exit: up to the first round that
     changes nothing, at most `iterations` (from the plain iteration)."""
     from iqc_tpu_torch.ops.boxes import iou_matrix
 
     k = boxes.shape[1]
     idx = torch.arange(k, device=boxes.device)
-    t = torch.tensor(THRESHOLD, dtype=torch.float32, device=boxes.device)
+    t = torch.tensor(threshold, dtype=torch.float32, device=boxes.device)
     overlap = (iou_matrix(boxes, boxes) > t) & (idx[:, None] < idx[None, :])
     keep = torch.ones(boxes.shape[:2], dtype=torch.bool, device=boxes.device)
     rounds = torch.zeros(boxes.shape[0], dtype=torch.int64, device=boxes.device)
@@ -1459,6 +1470,313 @@ def phase_captured(torch, images, det8, det32, det16):
     return out
 
 
+# -- phase 11: training ------------------------------------------------------------
+
+
+def _score_gap_threshold(scores, lo=5, hi=300):
+    """A confidence threshold in the widest gap between consecutive sorted
+    scores at ranks lo..hi, so that near-equal scores do not straddle it."""
+    import numpy as np
+
+    s = np.sort(scores.reshape(-1))[::-1][:hi + 1]
+    i = lo + int(np.argmax(s[lo:hi] - s[lo + 1:hi + 1]))
+    return float((s[i] + s[i + 1]) / 2), float(s[i] - s[i + 1])
+
+
+def _same_raw_detections(got, want, what):
+    """Per image the same detections, order aside (near-equal scores may
+    swap): classes and severities equal, boxes within 1e-2 px, scores
+    within 1e-4 relative (the float32 limits of PERF.md section 2)."""
+    import numpy as np
+
+    for i in range(want[3].shape[0]):
+        g = [x[i][got[3][i]] for x in got[:3]] + [got[4][i][got[3][i]]]
+        w = [x[i][want[3][i]] for x in want[:3]] + [want[4][i][want[3][i]]]
+        check(len(g[2]) == len(w[2]), f"{what} image {i}: {len(g[2])} detections, CPU {len(w[2])}")
+        og, ow = np.lexsort((g[0][:, 0], g[2])), np.lexsort((w[0][:, 0], w[2]))
+        check(np.array_equal(g[2][og], w[2][ow]) and np.array_equal(g[3][og], w[3][ow]),
+              f"{what} image {i}: classes or severities differ")
+        box_err = float(np.abs(g[0][og] - w[0][ow]).max()) if len(og) else 0.0
+        score_err = float((np.abs(g[1][og] - w[1][ow]) / np.abs(w[1][ow])).max()) if len(og) else 0.0
+        check(box_err <= 1e-2 and score_err <= 1e-4,
+              f"{what} image {i}: boxes within {box_err} px, scores {score_err} relative")
+
+
+def _k1_training_shapes(torch, dev):
+    """K1 at validation's shapes: [16,100,4] (YOLOv8n at 640^2: capacity 100)
+    and [16,84,4] (84 anchors, the capacity at 64 px), IoU threshold 0.6,
+    between guard regions, against the plain version; device ms (graph
+    replay of the raw launch), wrapper, plain and bound at [16,100,4]."""
+    import numpy as np
+
+    from iqc_tpu_torch import build
+    from iqc_tpu_torch.ops import nms_kernel
+
+    guard, sentinel, threshold = 4096, 0xA5, 0.6
+    fn = build.library().fns["iqc_suppress"]
+    row = None
+    for batch, k in ((16, 100), (16, 84)):
+        boxes = nms_inputs(torch, dev, batch=batch, k=k)
+        buf = torch.full((batch * k + 2 * guard,), sentinel, dtype=torch.uint8, device=dev)
+        keep = buf[guard:guard + batch * k].view(batch, k)
+        thr = torch.tensor(threshold, dtype=torch.float32, device=dev)
+
+        def launch():
+            build.launch(fn, boxes.device, boxes.data_ptr(), thr.data_ptr(), keep.data_ptr(),
+                         batch, k, ROUNDS)
+
+        launch()
+        torch.cuda.synchronize()
+        intact = bool((buf[:guard] == sentinel).all()) and bool((buf[-guard:] == sentinel).all())
+        check(intact, f"K1 [{batch},{k},4] at {threshold}: a guard region was written")
+        want = nms_kernel.suppress_plain(boxes, thr, ROUNDS)
+        check(torch.equal(keep.bool(), want), f"K1 [{batch},{k},4] differs from its plain version")
+        err = max_err(torch, nms_kernel.suppress(boxes, thr, ROUNDS), want)
+        check(err == 0, f"K1's wrapper at [{batch},{k},4] differs from its plain version")
+        if row is None:
+            rounds = suppress_rounds(torch, boxes, ROUNDS, threshold)
+            words = (k + 31) // 32
+            n_bytes = boxes.numel() * 4 + 4 + batch * k
+            n_ops = batch * (k * (k - 1) // 2) * 14 + sum(rounds) * k * words * 2
+            bound_ms, bound_by = bound(n_bytes, n_ops)
+            row = {"shape": f"[{batch},{k},4]", "threshold": threshold,
+                   "ms": graph_ms(torch, launch),
+                   "wrapper_ms": cuda_time_ms(lambda: nms_kernel.suppress(boxes, thr, ROUNDS)),
+                   "plain_ms": cuda_time_ms(lambda: nms_kernel.suppress_plain(boxes, thr, ROUNDS),
+                                            warmup=2, iters=10),
+                   "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+                   "rounds": rounds}
+    print(f"K1 at validation's shapes [16,100,4] and [16,84,4], threshold 0.6: equal to plain, "
+          f"guard regions intact; [16,100,4] device {row['ms']:.5f} ms, wrapper "
+          f"{row['wrapper_ms']:.5f} ms, plain {row['plain_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.7f} ms ({row['bound_by']})")
+    return row
+
+
+def _profiled_ms(torch, fn):
+    """fn under torch.profiler: (wall ms, device kernels, their summed
+    device ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    return wall, len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+
+
+def _corpus(torch, n, size, max_boxes, device):
+    """n synthetic training samples (images, boxes, classes, valid) on the device."""
+    import numpy as np
+
+    from iqc_tpu_torch.data.yolo_dataset import SyntheticDefectDataset
+
+    ds = SyntheticDefectDataset(n, size, max_boxes, seed=3)
+    items = [ds.load(i) for i in range(n)]
+    return tuple(torch.from_numpy(np.stack([x[j] for x in items])).to(device) for j in range(4))
+
+
+def _step_times(torch, config, corpus, steps=10, warmup=3):
+    """Train-step wall ms on the device corpus at the profile's batch
+    (median of ``steps`` after ``warmup``), one profiled step, the peak
+    memory, and the trainer."""
+    import numpy as np
+
+    from iqc_tpu_torch.train.train_yolo import YOLOTrainer
+
+    trainer = YOLOTrainer(config, device="cuda")
+    b = config["batch_size"]
+    trainer.build(steps_per_epoch=16)
+    rows = np.random.default_rng(0).integers(0, corpus[0].shape[0], (warmup + steps + 1, b))
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for i, row in enumerate(rows[:-1]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        parts = trainer._corpus_epoch(corpus, row[None].astype(np.int32))
+        torch.cuda.synchronize()
+        if i >= warmup:
+            ms.append((time.perf_counter() - t) * 1e3)
+        check(all(bool(torch.isfinite(v)) for v in parts[0].values()), "a non-finite loss")
+    peak = torch.cuda.max_memory_allocated()
+    wall, n, busy = _profiled_ms(torch, lambda: trainer._corpus_epoch(
+        corpus, rows[-1][None].astype(np.int32)))
+    med = sorted(ms)[len(ms) // 2]
+    return trainer, {"step_ms": ms, "median_ms": med, "images_per_s": b / med * 1e3,
+                     "profiled_step": {"wall_ms": wall, "kernels": n, "device_ms": busy,
+                                       "idle": 1 - busy / wall},
+                     "max_memory_allocated": peak}
+
+
+def phase_training(torch):
+    """Phase 11: the training entry point at full width, then step times,
+    card against CPU, and K1 at validation's shapes."""
+    import tempfile
+
+    import numpy as np
+
+    from iqc_tpu_torch.config import YOLO_TRAINING_PROFILE
+    from iqc_tpu_torch.models import YOLODetector
+    from iqc_tpu_torch.train.train_yolo import YOLOTrainer, config_from_profile
+
+    out = {}
+    dev = torch.device("cuda")
+    # 1. the entry point in a process of its own, its checkpoint outside the checkout
+    tmp = tempfile.mkdtemp(prefix="iqc_train_")
+    profile = json.loads(json.dumps(YOLO_TRAINING_PROFILE))
+    profile["training"]["checkpoint_dir"] = tmp
+    path = os.path.join(tmp, "yolo_profile.json")
+    with open(path, "w") as f:
+        json.dump(profile, f)
+    cmd = [sys.executable, "-m", "iqc_tpu_torch.train.train_yolo", "--synthetic", "--epochs",
+           "1", "--config", path]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=240)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-3000:])
+    check(proc.returncode == 0, f"the training entry point exited {proc.returncode}")
+    report = json.loads(proc.stdout)
+    final = report["final"]
+    losses = {k: v for k, v in final.items() if k.startswith("train_") and k.endswith("loss")}
+    check(losses and all(np.isfinite(v) for v in losses.values()), f"losses {losses}")
+    check("val_mAP50" in final and "val_mAP50_95" in final, "no mAP in the report")
+    ckpt = os.path.join(tmp, "yolov8_qc.msgpack")
+    check(os.path.exists(ckpt) and os.path.exists(ckpt + ".json"), "no checkpoint written")
+    launches = report["kernel_launches"]
+    check(launches["suppress"] == 4 and launches["grow_clean"] == 0 and launches["clean"] == 0,
+          f"the training run's launches {launches} (4 validation batches of 16 expected)")
+    out["entry_point"] = {"command": " ".join(cmd[1:]), "wall_s": wall, "report": report}
+    print(f"python -m iqc_tpu_torch.train.train_yolo --synthetic --epochs 1 (the "
+          f"yolo_config.yaml profile, YOLOv8n 640^2, batch 16, bf16, device mosaic and "
+          f"augmentation, class weights): rc 0 in {wall:.2f} s, losses {losses}, mAP50 "
+          f"{final['val_mAP50']:.5f}, launches {launches}, checkpoint written")
+
+    # the trained checkpoint served by YOLODetector, card against CPU (float32)
+    frames = np.stack([defect_image(s) for s in range(2)])
+    dets = {d: YOLODetector(model_path=ckpt, device=d, confidence_threshold=0.5) for d in
+            ("cuda", "cpu")}
+    check(dets["cuda"].get_model_info()["weights_source"] == "checkpoint", "checkpoint not loaded")
+    with torch.no_grad():
+        _, cls = dets["cpu"].module(torch.from_numpy(frames).float() / 255.0)
+    conf, gap = _score_gap_threshold(torch.sigmoid(cls.float()).amax(-1).numpy())
+    raw = {}
+    for d, det in dets.items():
+        det.update_thresholds(confidence=conf)
+        raw[d] = det._forward(det._upload(frames))
+    _same_raw_detections(raw["cuda"], raw["cpu"], "the trained checkpoint")
+    n_det = int(raw["cuda"][3].sum())
+    out["served_checkpoint"] = {"confidence_threshold": conf, "score_gap": gap,
+                                "detections": n_det}
+    print(f"the trained checkpoint in YOLODetector at confidence {conf:.6f} (a score gap of "
+          f"{gap:.2e}): {n_det} detections on 2 frames, card equal to the CPU")
+
+    # 2. step times at batch 16, 640^2: bfloat16, float32 (TF32 off)
+    corpus = _corpus(torch, 48, 640, 64, dev)
+    base = config_from_profile(YOLO_TRAINING_PROFILE)
+    times = {}
+    for label, dtype in (("bf16", "bfloat16"), ("fp32", "float32")):
+        trainer, times[label] = _step_times(torch, {**base, "compute_dtype": dtype}, corpus)
+        if label == "bf16":
+            batch = corpus[0][:16]
+            trainer.predict_batches([batch])
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(5):
+                trainer.predict_batches([batch])
+            times["validation_ms_per_batch_16"] = (time.perf_counter() - t) * 1e3 / 5
+        del trainer
+        torch.cuda.empty_cache()
+        r = times[label]
+        print(f"train step {label}: median {r['median_ms']:.2f} ms ({r['images_per_s']:.1f} "
+              f"images/s) of {', '.join(f'{v:.2f}' for v in r['step_ms'])}; profiled step "
+              f"{r['profiled_step']['wall_ms']:.2f} ms wall, {r['profiled_step']['kernels']} "
+              f"kernels, {r['profiled_step']['device_ms']:.2f} ms device, idle "
+              f"{100 * r['profiled_step']['idle']:.1f}%; peak memory "
+              f"{r['max_memory_allocated'] / 2**20:.0f} MiB")
+    print(f"validation (EMA predict + K1, captured) {times['validation_ms_per_batch_16']:.2f} ms "
+          f"per batch of 16")
+    out["step_times"] = times
+
+    # 3. card against CPU: two float32 steps at batch 2 from the same state
+    # (the shipped detector checkpoint: a fresh network scores every anchor
+    # within ~1e-8, and which of near-equal anchors the assignment's top-k
+    # takes then follows rounding) and the same CPU-drawn mosaic and
+    # augmentation draws; then one bf16 step. On the CPU the batch
+    # statistics are summed in XLA's sequential order (the JAX package's);
+    # their fast variance cancels on these flat images, so the card's tree
+    # reduction moves the loss by ~3e-4. The float32 steps are also held
+    # against the CPU with PyTorch's own reduction (``layers.channel_mean``
+    # replaced for that run), which the card's should match within 1e-4.
+    from iqc_tpu_torch import weights
+    from iqc_tpu_torch.models import layers
+
+    shipped = weights.read_checkpoint(os.path.join(REPO, YOLO_CKPT))
+    small = tuple(x[:8] for x in corpus)
+    xla_order = layers.channel_mean
+
+    def torch_order(x):
+        return x.mean([d for d in range(x.dim()) if d != 1])
+
+    def run(cfg, device, steps, stats):
+        layers.channel_mean = stats
+        try:
+            tr = YOLOTrainer(cfg, device=device)
+            tr.build(steps_per_epoch=16)
+            weights.load_into(tr.module, shipped)
+            with torch.no_grad():
+                for k, p in tr.state.params.items():
+                    tr.ema_params[k].copy_(p)
+            c = small if device == "cuda" else tuple(x.cpu() for x in small)
+            return tr, tr._corpus_epoch(c, np.array([[0, 5], [3, 6]], np.int32)[:steps])
+        finally:
+            layers.channel_mean = xla_order
+
+    def compare(got, want, tol, what):
+        errs = []
+        for g, w in zip(got[1], want[1]):
+            for k in ("loss", "box_loss", "cls_loss", "dfl_loss"):
+                diff = abs(float(g[k]) - float(w[k]))
+                errs.append(diff / abs(float(w[k])))
+                check(errs[-1] <= tol or diff <= 1e-6 * abs(float(w["loss"])),
+                      f"{what} step {k}: {float(g[k])} vs {float(w[k])}")
+        p_err = max(float((got[0].state.params[k].detach().cpu()
+                           - want[0].state.params[k].detach()).abs().max())
+                    for k in want[0].state.params)
+        return {"max_rel_loss_err": max(errs), "params_max_abs_err": p_err,
+                "losses": [float(p["loss"]) for p in want[1]]}
+
+    cross = {}
+    fp32 = {**base, "batch_size": 2, "compute_dtype": "float32"}
+    card = run(fp32, "cuda", 2, xla_order)
+    cross["fp32_vs_cpu_torch_order"] = compare(card, run(fp32, "cpu", 2, torch_order), 1e-4,
+                                               "fp32 card vs CPU (PyTorch's reduction)")
+    cross["fp32_vs_cpu_xla_order"] = compare(card, run(fp32, "cpu", 2, xla_order), 1e-3,
+                                             "fp32 card vs CPU (XLA's order)")
+    for r in cross.values():
+        check(r["params_max_abs_err"] <= 1e-3,
+              f"float32 params after 2 steps differ by {r['params_max_abs_err']} card vs CPU")
+    bf16 = {**base, "batch_size": 2, "compute_dtype": "bfloat16"}
+    cross["bf16_vs_cpu_xla_order"] = compare(run(bf16, "cuda", 1, xla_order),
+                                             run(bf16, "cpu", 1, xla_order), 2e-2,
+                                             "bf16 card vs CPU")
+    del card
+    for label, r in cross.items():
+        print(f"card vs CPU, {label}, batch 2, 640^2, from the shipped checkpoint and the same "
+              f"draws: loss parts within {r['max_rel_loss_err']:.3e} relative, params within "
+              f"{r['params_max_abs_err']:.3e}")
+    out["card_vs_cpu"] = cross
+
+    # 4. K1 at validation's shapes
+    out["k1"] = _k1_training_shapes(torch, dev)
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     t_all = time.perf_counter()
     try:
@@ -1502,6 +1820,9 @@ def main() -> int:
             yolo_launches, seg_launches = phase_entry_points(torch, images)
             standalone = standalone_kernel_rows(torch)
             preprocessing = preprocessing_times(torch)
+        torch.cuda.empty_cache()
+        with Phase("training", 300):
+            training = phase_training(torch)
     except Exception as e:  # every phase failure ends the run without a result
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)
         return 1
@@ -1518,9 +1839,14 @@ def main() -> int:
         row["launches_5_replays"] = captured["launches_5_replays"][counter]
         if counter in standalone:
             row["segmentator_shapes"] = standalone[counter]
+        row["launches_training"] = training["launches"][counter]
+        if counter == "suppress":
+            row["training_shape"] = training["k1"]
     print(json.dumps({"captured": captured}))
     print(json.dumps({"networks": networks}))
     print(json.dumps({"preprocessing": preprocessing}))
+    for key in ("entry_point", "served_checkpoint", "step_times", "card_vs_cpu"):
+        print(json.dumps({f"training_{key}": training[key]}))
     print(f"total wall time {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -37,6 +37,32 @@ def resolve_path(path: str) -> str:
     return os.path.join(REPO_ROOT, path)
 
 
+# The YOLOv8 training profile of config/yolo_config.yaml (its training,
+# augmentation and qc_specific.class_weights blocks), held as data because
+# the card's machine has no YAML reader; tests hold it equal to the YAML.
+YOLO_TRAINING_PROFILE: Dict[str, Any] = {
+    "training": {
+        "num_classes": 5, "image_size": 640, "batch_size": 16, "epochs": 100,
+        "learning_rate": 0.01, "final_lr_fraction": 0.01, "warmup_epochs": 3,
+        "weight_decay": 0.0005, "momentum": 0.937,
+        "box_gain": 7.5, "cls_gain": 0.5, "dfl_gain": 1.5,
+        "mosaic": 1.0, "mixup": 0.0, "ema_decay": 0.9999,
+        "width_mult": 0.25, "depth_mult": 0.334, "reg_max": 16, "max_boxes": 64,
+        "val_conf": 0.001, "val_iou": 0.6, "patience": 50,
+        "checkpoint_dir": "checkpoints/yolo", "compute_dtype": "bfloat16", "seed": 42,
+    },
+    "augmentation": {
+        "hsv_h": 0.015, "hsv_s": 0.7, "hsv_v": 0.4, "degrees": 0.0, "translate": 0.1,
+        "scale": 0.5, "shear": 0.0, "flipud": 0.0, "fliplr": 0.5,
+        "mosaic": 1.0, "mixup": 0.0,
+    },
+    "qc_specific": {
+        "class_weights": {"crack": 1.2, "scratch": 1.0, "dent": 1.5,
+                          "discoloration": 0.8, "contamination": 1.1},
+    },
+}
+
+
 def _merge(base: Dict[str, Any], override: Dict[str, Any]) -> Dict[str, Any]:
     out = dict(base)
     for k, v in (override or {}).items():
@@ -528,6 +554,13 @@ def load_config(path: Optional[str] = None) -> SystemConfig:
     if not os.path.exists(path):
         logger.warning("config file %s not found; using the shipped profile", path)
         return SystemConfig().validate()
+    return SystemConfig.from_dict(read_config_file(path))
+
+
+def read_config_file(path: str) -> Dict[str, Any]:
+    """The dict in the JSON file at ``path`` (empty for an empty file), or
+    in the YAML file where it ends in ``.yaml`` / ``.yml``, which needs
+    PyYAML and raises where it is missing."""
     with open(path) as f:
         text = f.read()
     if path.endswith((".yaml", ".yml")):
@@ -537,7 +570,5 @@ def load_config(path: Optional[str] = None) -> SystemConfig:
             raise RuntimeError(
                 f"{path} is YAML, and reading YAML needs PyYAML, which is not "
                 "installed; give the configuration as a JSON file instead") from e
-        raw = yaml.safe_load(text) or {}
-    else:
-        raw = json.loads(text) if text.strip() else {}
-    return SystemConfig.from_dict(raw)
+        return yaml.safe_load(text) or {}
+    return json.loads(text) if text.strip() else {}

@@ -1,17 +1,80 @@
-"""Procedural defect images with exact labels, the renderer that int8
-calibration draws its frames and crops from (numpy only; no external data).
+"""Detection datasets and the host loader (numpy only; no external data).
 
-Defect renderers per class: crack = dark polyline, scratch = thin dark line,
-dent = dark ellipse, discoloration = colour patch, contamination = bright
-blob. Image ``i`` of a dataset with seed ``s`` is a function of ``s`` and
-``i`` alone: the same bytes as the JAX package's ``SyntheticDefectDataset``.
+- ``SyntheticDefectDataset``: procedural defect images with exact labels,
+  the corpus of ``train_yolo --synthetic`` and of int8 calibration. Defect
+  renderers per class: crack = dark polyline, scratch = thin dark line,
+  dent = dark ellipse, discoloration = colour patch, contamination = bright
+  blob. Image ``i`` of a dataset with seed ``s`` is a function of ``s`` and
+  ``i`` alone: the same bytes as the JAX package's.
+- ``YoloDataset``: images/<split>/*.jpg|png with labels/<split>/*.txt
+  lines ``class cx cy w h`` (normalized), padded to ``max_boxes``. Images
+  decode with ``runtime/codec.py`` (JPEG, 8-bit PNG) and resize with the
+  Pillow-exact bicubic of ``data/resize.py``.
+- ``mosaic4`` and ``mixup``: the host collage (Pillow-exact bilinear) and
+  blend; ``DetectionLoader``: batches with a producer thread.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
+
+from iqc_tpu_torch.data.resize import resize_bicubic, resize_bilinear
+
+IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp")
+
+
+class YoloDataset:
+    """Images + YOLO txt labels; samples padded to ``max_boxes``."""
+
+    def __init__(self, images_dir: str, labels_dir: Optional[str] = None,
+                 image_size: int = 640, max_boxes: int = 64):
+        self.images_dir = images_dir
+        self.labels_dir = labels_dir or images_dir.replace("images", "labels")
+        self.image_size = image_size
+        self.max_boxes = max_boxes
+        self.files = [f for f in sorted(os.listdir(images_dir))
+                      if f.lower().endswith(IMAGE_EXTENSIONS)]
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def _label_path(self, image_file: str) -> str:
+        stem = os.path.splitext(image_file)[0]
+        return os.path.join(self.labels_dir, stem + ".txt")
+
+    def load(self, index: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """-> image [S,S,3] uint8, boxes [max,4] xyxy pixels, classes [max],
+        valid [max]. An image that does not decode raises ValueError."""
+        from iqc_tpu_torch.runtime.codec import decode_image
+
+        s = self.image_size
+        path = os.path.join(self.images_dir, self.files[index])
+        with open(path, "rb") as f:
+            decoded = decode_image(f.read())
+        if decoded is None:
+            raise ValueError(f"{path}: could not decode (JPEG and 8-bit PNG are read)")
+        image = resize_bicubic(decoded, (s, s))
+
+        boxes = np.zeros((self.max_boxes, 4), np.float32)
+        classes = np.zeros((self.max_boxes,), np.int32)
+        valid = np.zeros((self.max_boxes,), bool)
+        lp = self._label_path(self.files[index])
+        if os.path.exists(lp):
+            rows = []
+            with open(lp) as f:
+                for line in f:
+                    parts = line.split()
+                    if len(parts) >= 5:
+                        rows.append([float(v) for v in parts[:5]])
+            for i, (cls, cx, cy, w, h) in enumerate(rows[:self.max_boxes]):
+                boxes[i] = [(cx - w / 2) * s, (cy - h / 2) * s,
+                            (cx + w / 2) * s, (cy + h / 2) * s]
+                classes[i] = int(cls)
+                valid[i] = True
+        return image, boxes, classes, valid
 
 
 class SyntheticDefectDataset:
@@ -105,3 +168,126 @@ class SyntheticDefectDataset:
             classes[i] = cls
             valid[i] = True
         return np.clip(img, 0, 255).astype(np.uint8), boxes, classes, valid
+
+
+def mosaic4(samples, out_size: int, max_boxes: int, rng: np.random.Generator):
+    """4-image mosaic collage on a grey (114) canvas; each source resized
+    into its quadrant with the bilinear filter."""
+    cx = int(rng.uniform(0.3, 0.7) * out_size)
+    cy = int(rng.uniform(0.3, 0.7) * out_size)
+    canvas = np.full((out_size, out_size, 3), 114, np.uint8)
+    all_boxes, all_classes = [], []
+    quads = [(0, 0, cx, cy), (cx, 0, out_size, cy),
+             (0, cy, cx, out_size), (cx, cy, out_size, out_size)]
+    for (qx1, qy1, qx2, qy2), (img, boxes, classes, valid) in zip(quads, samples):
+        qw, qh = qx2 - qx1, qy2 - qy1
+        if qw <= 0 or qh <= 0:
+            continue
+        ih, iw = img.shape[:2]
+        sx, sy = qw / iw, qh / ih
+        canvas[qy1:qy2, qx1:qx2] = resize_bilinear(img, (qw, qh))
+        for b, c, v in zip(boxes, classes, valid):
+            if not v:
+                continue
+            all_boxes.append([b[0] * sx + qx1, b[1] * sy + qy1,
+                              b[2] * sx + qx1, b[3] * sy + qy1])
+            all_classes.append(c)
+
+    boxes = np.zeros((max_boxes, 4), np.float32)
+    classes = np.zeros((max_boxes,), np.int32)
+    valid = np.zeros((max_boxes,), bool)
+    for i, (b, c) in enumerate(zip(all_boxes[:max_boxes], all_classes[:max_boxes])):
+        boxes[i], classes[i], valid[i] = b, c, True
+    return canvas, boxes, classes, valid
+
+
+def mixup(sample_a, sample_b, rng: np.random.Generator, alpha: float = 32.0):
+    """Image-level mixup; both label sets kept (its own first)."""
+    lam = float(rng.beta(alpha, alpha))
+    img = (sample_a[0].astype(np.float32) * lam
+           + sample_b[0].astype(np.float32) * (1 - lam)).astype(np.uint8)
+    max_boxes = sample_a[1].shape[0]
+    boxes = np.concatenate([sample_a[1], sample_b[1]])[:max_boxes]
+    classes = np.concatenate([sample_a[2], sample_b[2]])[:max_boxes]
+    valid = np.concatenate([sample_a[3], sample_b[3]])[:max_boxes]
+    return img, boxes, classes, valid
+
+
+class DetectionLoader:
+    """Batches of a dataset with host mosaic/mixup probabilities. Without
+    augmentation each epoch enumerates the dataset once (shuffled unless
+    ``shuffle`` is False), the tail wrapped to a full batch."""
+
+    def __init__(self, dataset, batch_size: int, mosaic_prob: float = 1.0,
+                 mixup_prob: float = 0.0, shuffle: bool = True, seed: int = 0,
+                 prefetch: int = 2):
+        self.ds = dataset
+        self.batch_size = batch_size
+        self.mosaic_prob = mosaic_prob
+        self.mixup_prob = mixup_prob
+        self.shuffle = shuffle
+        self.prefetch = prefetch
+        self._rng = np.random.default_rng(seed)
+
+    def __len__(self) -> int:
+        return max(len(self.ds) // self.batch_size, 1)
+
+    def _sample(self, index: int, idx_pool: np.ndarray,
+                rng: Optional[np.random.Generator] = None):
+        """One sample anchored at dataset ``index``; mosaic/mixup companions
+        come from ``idx_pool``."""
+        rng = self._rng if rng is None else rng
+        if self.mosaic_prob > 0 and rng.uniform() < self.mosaic_prob:
+            picks = [index] + [int(i) for i in rng.choice(idx_pool, 3)]
+            sample = mosaic4([self.ds.load(int(i)) for i in picks],
+                             self.ds.image_size, self.ds.max_boxes, rng)
+        else:
+            sample = self.ds.load(int(index))
+        if self.mixup_prob > 0 and rng.uniform() < self.mixup_prob:
+            other = self.ds.load(int(rng.choice(idx_pool)))
+            sample = mixup(sample, other, rng)
+        return sample
+
+    def _make_batches(self) -> Iterator[Dict[str, np.ndarray]]:
+        idx = np.arange(len(self.ds))
+        if self.shuffle:
+            self._rng.shuffle(idx)
+        for b in range(len(self)):
+            anchors = idx[b * self.batch_size:(b + 1) * self.batch_size]
+            if len(anchors) < self.batch_size:  # wrap the tail (fixed capacity)
+                anchors = np.concatenate([anchors, idx[:self.batch_size - len(anchors)]])
+            samples = [self._sample(int(a), idx) for a in anchors]
+            imgs, boxes, classes, valid = zip(*samples)
+            yield {"images": np.stack(imgs), "boxes": np.stack(boxes),
+                   "classes": np.stack(classes), "valid": np.stack(valid)}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        """A producer thread builds the batches ahead (``prefetch`` deep),
+        so host work overlaps the device's; its exception re-raises here."""
+        if self.prefetch <= 0:
+            yield from self._make_batches()
+            return
+        import queue as _q
+        import threading
+
+        q: _q.Queue = _q.Queue(self.prefetch)
+        end = object()
+        errors = []
+
+        def producer():
+            try:
+                for batch in self._make_batches():
+                    q.put(batch)
+            except BaseException as e:  # handed to the consumer, which re-raises it
+                errors.append(e)
+            finally:
+                q.put(end)
+
+        threading.Thread(target=producer, daemon=True).start()
+        while True:
+            item = q.get()
+            if item is end:
+                break
+            yield item
+        if errors:
+            raise errors[0]

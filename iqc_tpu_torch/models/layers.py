@@ -1,4 +1,4 @@
-"""Inference-only building blocks shared by the two networks.
+"""Building blocks shared by the two networks.
 
 Submodule and parameter names follow the Flax scopes of the JAX package, so
 that ``weights.from_flax`` maps a checkpoint onto them by name alone.
@@ -8,10 +8,16 @@ each convolution casts its operands to the activation dtype (bfloat16
 products accumulated in float32, the output rounded to bfloat16), and
 BatchNorm computes in float32 from its bfloat16 input and rounds its output.
 A network in float32 runs the same operations as the plain float modules.
+
+In training mode (``module.train()``) BatchNorm normalizes with the batch's
+own statistics and moves its running averages, as Flax's
+``nn.BatchNorm(use_running_average=False)`` does; ``init_flax`` draws the
+initial weights from Flax's initializers.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -43,13 +49,56 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.reciprocal(1 + torch.exp(-x))
 
 
-class BatchNorm(nn.Module):
-    """Inference BatchNorm over dim 1 with Flax's arithmetic:
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+class _ChannelMean(torch.autograd.Function):
+    """Mean over every dim but 1 of a float32 CPU tensor, summed in sequence
+    over the flattened N, H, W positions (each channel's running sum
+    rounded at every add) and scaled by the float32 reciprocal of the
+    count: the order and rounding of XLA's CPU reduction in the JAX
+    package. The backward is the mean's (each input gets grad / count)."""
 
-    def __init__(self, features: int, eps: float):
+    @staticmethod
+    def forward(ctx, x):
+        c = x.shape[1]
+        rows = x.detach().movedim(1, -1).reshape(-1, c).numpy()
+        n = rows.shape[0]
+        # numpy adds the rows of a C-contiguous [n, c] array one after another
+        total = np.add.reduce(np.ascontiguousarray(rows), axis=0, dtype=np.float32)
+        ctx.shape, ctx.n = x.shape, n
+        return torch.from_numpy(total * np.float32(1.0 / n))
+
+    @staticmethod
+    def backward(ctx, grad):
+        shape = (1, -1) + (1,) * (len(ctx.shape) - 2)
+        return (grad * np.float32(1.0 / ctx.n)).view(shape).expand(ctx.shape).contiguous()
+
+
+def channel_mean(x: torch.Tensor) -> torch.Tensor:
+    """Float32 mean of ``x`` over every dim but 1. On the CPU in XLA's
+    summation order (``_ChannelMean``): the batch statistics' fast variance
+    cancels ``mean(x^2)`` against ``mean(x)^2``, which on flat images
+    magnifies a difference of summation order a thousandfold. On the card,
+    PyTorch's reduction."""
+    if x.device.type == "cpu":
+        return _ChannelMean.apply(x)
+    return x.mean([d for d in range(x.dim()) if d != 1])
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over dim 1 with Flax's arithmetic:
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.
+
+    In evaluation mode mean and var are the running averages. In training
+    mode they are the batch's, computed in float32 (also from bfloat16
+    input) over every dim but 1 (``channel_mean``), the variance as
+    ``mean(x^2) - mean(x)^2`` clipped at 0 (biased, Flax's fast variance);
+    the running averages then move to ``momentum * running + (1 - momentum)
+    * batch`` with no Bessel correction. Autograd differentiates through the
+    same formula."""
+
+    def __init__(self, features: int, eps: float, momentum: float = 0.97):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -58,8 +107,18 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Computed in float32, returned in the dtype of ``x``."""
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.to(torch.float32) - self.running_mean.view(shape)) * mul.view(shape)
+        xf = x.to(torch.float32)
+        if self.training:
+            mean = channel_mean(xf)
+            var = torch.clamp(channel_mean(xf * xf) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(x.dtype)
 
 
@@ -75,6 +134,34 @@ def init_random(module: nn.Module, seed: int) -> None:
                 m.weight.copy_(w)
                 if m.bias is not None:
                     m.bias.zero_()
+
+
+# Flax's lecun_normal: a normal truncated to [-2, 2] standard deviations,
+# rescaled so that the variance is 1 / fan_in (the truncation's own std)
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def init_flax(module: nn.Module, seed: int, bias_init=None) -> None:
+    """Seeded init with Flax's defaults, from one CPU ``torch.Generator``:
+    conv and dense kernels lecun_normal (variance 1 / fan_in, truncated at
+    two standard deviations), biases 0, BatchNorm scale 1 and bias 0 with
+    running mean 0 and variance 1. ``bias_init`` maps a submodule's name to
+    a constant bias (YOLOv8's class prior, -4.6 on every ``cls_out``)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, m in module.named_modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                std = (1.0 / m.weight[0].numel()) ** 0.5 / _TRUNCATED_STD
+                w = torch.empty(m.weight.shape)
+                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=g)
+                m.weight.copy_(w * std)
+                if m.bias is not None:
+                    m.bias.fill_((bias_init or (lambda _: 0.0))(name))
+            elif isinstance(m, BatchNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
 
 
 def exact_float32(device) -> None:

@@ -9,7 +9,9 @@ Width and depth multipliers follow the YOLOv8 family (n: 0.25/0.334);
 channels snap to multiples of 8. BatchNorm epsilon is 1e-3.
 
 ``dtype=torch.bfloat16`` runs the whole network in bfloat16 (``layers``);
-the logits are then bfloat16.
+the logits are then bfloat16. ``module.train()`` runs it in training mode
+(BatchNorm on batch statistics, ``layers.BatchNorm``); ``init_weights``
+draws a trainer's starting weights as Flax's initializers do.
 """
 
 from __future__ import annotations
@@ -22,10 +24,29 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from iqc_tpu_torch.models.layers import BatchNorm, conv2d, exact_float32, silu
+from iqc_tpu_torch.models.layers import BatchNorm, conv2d, exact_float32, init_flax, silu
 from iqc_tpu_torch.ops.jit_utils import hoisted_jit
 
 STRIDES = (8, 16, 32)
+
+# Module definition order (both stem variants listed; a model has one).
+# Index semantics follow Ultralytics' `freeze: N` (the first 10 are the
+# backbone); the trainer's freeze_layers reads them.
+MODULE_ORDER = (
+    "stem", "stem_s2d", "down2", "c2f_2", "down3", "c2f_3", "down4",
+    "c2f_4", "down5", "c2f_5", "sppf",
+    "neck_td4", "neck_td3", "neck_down4", "neck_bu4", "neck_down5",
+    "neck_bu5", "head_p3", "head_p4", "head_p5",
+)
+
+# The backbone's modules (the s2d stem has no down2, so its backbone is 9
+# modules; freeze_layers=10 still means the whole backbone there)
+BACKBONE_KEYS = frozenset(
+    ("stem", "stem_s2d", "down2", "c2f_2", "down3", "c2f_3", "down4",
+     "c2f_4", "down5", "c2f_5", "sppf")
+)
+
+CLS_PRIOR = -4.6  # bias of every cls_out at init: a low initial class score
 
 
 def _make_divisible(x: float, divisor: int = 8) -> int:
@@ -187,6 +208,12 @@ class YOLOv8(nn.Module):
             dists.append(dist.permute(0, 2, 3, 1).reshape(b, -1, 4 * self.reg_max))
             clss.append(cls.permute(0, 2, 3, 1).reshape(b, -1, self.num_classes))
         return torch.cat(dists, dim=1), torch.cat(clss, dim=1)
+
+
+def init_weights(module: "YOLOv8", seed: int) -> None:
+    """Flax's initializers (``layers.init_flax``) with the class prior on
+    every ``cls_out`` bias, as the JAX package's module initializes."""
+    init_flax(module, seed, lambda name: CLS_PRIOR if name.endswith("cls_out") else 0.0)
 
 
 def feature_shapes(input_size: Tuple[int, int]) -> List[Tuple[int, int]]:

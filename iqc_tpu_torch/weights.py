@@ -15,7 +15,9 @@ modules, whose submodule names follow the Flax scopes (``Conv_0``,
 kernels [in,out] -> [out,in], BatchNorm ``scale``/``mean``/``var`` ->
 ``weight``/``running_mean``/``running_var``; ``to_flax`` is its inverse.
 ``install_int8_state`` puts the JAX package's quantized networks (trees and
-activation scales, as numpy) into the port's int8 predictor.
+activation scales, as numpy) into the port's int8 predictor;
+``train_state_from_flax`` turns the JAX trainer's state (parameters,
+statistics, optax's trace, count and mask, the EMA) into the port's.
 """
 
 from __future__ import annotations
@@ -330,32 +332,104 @@ def load_into(module: torch.nn.Module, variables: Dict[str, Any]) -> None:
     module.load_state_dict(sd, strict=True)
 
 
-def to_flax(module: torch.nn.Module) -> Dict[str, Any]:
+def to_flax(module: torch.nn.Module, values: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """The port's module -> Flax variables {params, batch_stats} of numpy
-    float32 arrays (the inverse of ``from_flax``)."""
+    float32 arrays (the inverse of ``from_flax``). ``values`` maps
+    state-dict names to other leaves of the same layout to write in the
+    module's place (a momentum trace, an EMA, per-leaf mask scalars); the
+    tree then holds only the names it gives."""
     from iqc_tpu_torch.models.layers import BatchNorm
 
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
 
-    def put(tree, scope, leaf, value):
-        for name in scope:
-            tree = tree.setdefault(name, {})
-        tree[leaf] = np.array(value.detach().cpu().numpy(), np.float32, order="C")
+    def put(tree, scope, leaf, name, value, layout=None):
+        if values is not None:
+            if name not in values:
+                return
+            value = values[name]
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().float()
+            if layout is not None and value.dim() == 4:
+                value = value.permute(2, 3, 1, 0)
+            elif layout is not None and value.dim() == 2:
+                value = value.t()
+            value = value.numpy()
+        for part in scope:
+            tree = tree.setdefault(part, {})
+        tree[leaf] = np.array(value, np.float32, order="C")
 
     for name, m in module.named_modules():
         scope = name.split(".") if name else []
+        pre = name + "." if name else ""
         if isinstance(m, BatchNorm):
-            put(params, scope, "scale", m.weight)
-            put(params, scope, "bias", m.bias)
-            put(stats, scope, "mean", m.running_mean)
-            put(stats, scope, "var", m.running_var)
+            put(params, scope, "scale", pre + "weight", m.weight)
+            put(params, scope, "bias", pre + "bias", m.bias)
+            put(stats, scope, "mean", pre + "running_mean", m.running_mean)
+            put(stats, scope, "var", pre + "running_var", m.running_var)
         elif isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
-            w = m.weight.detach()
-            put(params, scope, "kernel", w.permute(2, 3, 1, 0) if w.dim() == 4 else w.t())
+            put(params, scope, "kernel", pre + "weight", m.weight, layout="kernel")
             if m.bias is not None:
-                put(params, scope, "bias", m.bias)
+                put(params, scope, "bias", pre + "bias", m.bias)
     return {"params": params, "batch_stats": stats}
+
+
+def flax_named(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A Flax params-shaped tree (params, a momentum trace, an EMA, a mask
+    of scalars) -> tensors by the port's state-dict names."""
+    return from_flax({"params": tree})
+
+
+def _optax_leaves(opt_state) -> Dict[str, Any]:
+    """The trace, count and mask of an optax chain's state, as optax state
+    objects (NamedTuples in nested tuples) or as their state-dict form
+    (nested dicts keyed by field name or position)."""
+    found: Dict[str, Any] = {}
+
+    def walk(node):
+        if isinstance(node, dict):
+            items = node.items()
+        elif hasattr(node, "_fields"):
+            items = ((f, getattr(node, f)) for f in node._fields)
+        elif isinstance(node, (list, tuple)):
+            items = enumerate(node)
+        else:
+            return
+        for k, v in items:
+            if k in ("trace", "count", "mask"):
+                found[k] = v
+            else:
+                walk(v)
+
+    walk(opt_state)
+    return found
+
+
+def train_state_from_flax(state, ema_params=None) -> Dict[str, Any]:
+    """The JAX trainer's state as the port's: ``state`` is its
+    ``TrainState`` (step, params, batch_stats, opt_state), or that tuple as
+    numpy (``jax.device_get``) or in the state-dict form a train-state
+    checkpoint holds; ``ema_params`` its EMA tree. Returns {"step": int,
+    "params", "batch_stats", "trace", "ema": tensors by state-dict name,
+    "count": int, "mask": {name: float} or None}."""
+    if isinstance(state, dict):
+        state = tuple(state[str(i)] for i in range(4))
+    step, params, batch_stats, opt_state = state
+    opt = _optax_leaves(opt_state)
+    if "trace" not in opt or "count" not in opt:
+        raise ValueError("the optimizer state holds no momentum trace and count "
+                         "(expected add_decayed_weights -> sgd with momentum)")
+    out = {"step": int(np.asarray(step)),
+           "params": flax_named(params),
+           "batch_stats": from_flax({"batch_stats": batch_stats}),
+           "trace": flax_named(opt["trace"]),
+           "count": int(np.asarray(opt["count"])),
+           "mask": None, "ema": None}
+    if "mask" in opt:
+        out["mask"] = {k: float(v) for k, v in flax_named(opt["mask"]).items()}
+    if ema_params is not None:
+        out["ema"] = flax_named(ema_params)
+    return out
 
 
 def install_int8_state(predictor, yolo_vars: Dict[str, Any] = None,

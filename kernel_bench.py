@@ -18,9 +18,16 @@ device ms (chip_smoke.graph_ms, a CUDA graph of raw launches) and wrapper ms
 (chip_smoke.cuda_time_ms). For K1 at the predict shape it also times the
 launch with no round, which splits the IoU triangle from the rounds. Prints
 a table, the nvidia-smi line and one JSON line last; needs a CUDA device.
+
+K1's raw entry point is launched in the measured tree's own form, read from
+that tree's ``build._SIGNATURES["iqc_suppress"]``: the IoU threshold as a
+pointer to a float32 on the device (this checkout) or as a C float (older
+trees, whose wrapper also takes the threshold as a float). A tree with
+another form is refused.
 """
 
 import argparse
+import ctypes
 import importlib.util
 import json
 import os
@@ -43,18 +50,60 @@ def import_tree(tree):
     return build
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# K1's entry point: the threshold as a device pointer, or as a C float
+K1_FORMS = {(_P, _P, _P, _I, _I, _I, _P): "pointer",
+            (_P, _P, _I, _I, ctypes.c_float, _I, _P): "float"}
+
+
+def k1_form(build, tree):
+    form = K1_FORMS.get(tuple(build._SIGNATURES["iqc_suppress"]))
+    if form is None:
+        raise SystemExit(f"{tree}: K1's entry point has a form this script does not know: "
+                         f"{build._SIGNATURES['iqc_suppress']}")
+    return form
+
+
+def k1_launch(torch, fn, form, boxes, thr, keep, iterations):
+    """A launch of K1's raw entry point in the tree's form; `thr` is a 0-d
+    float32 tensor on the card."""
+    b, k = boxes.shape[:2]
+    if form == "pointer":
+        args = (boxes.data_ptr(), thr.data_ptr(), keep.data_ptr(), b, k, iterations)
+    else:
+        args = (boxes.data_ptr(), keep.data_ptr(), b, k, float(thr.item()), iterations)
+
+    def launch():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise SystemExit(f"iqc_suppress failed with CUDA error {err}")
+    return launch
+
+
 def measure(tree):
     import torch
 
     build = import_tree(tree)
+    form = k1_form(build, tree)
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     dev = torch.device("cuda")
     lib = build.library()
     out = {}
+    from iqc_tpu_torch.ops import nms_kernel
+
     for label, images, rois in smoke.SHAPES:
         for c in smoke.kernel_cases(torch, dev, images, rois):
+            if c["name"] == "suppress":
+                boxes, thr, keep = c["raw"].tensors[:3]
+                c["raw"] = k1_launch(torch, lib.fns["iqc_suppress"], form, boxes, thr, keep,
+                                     smoke.ROUNDS)
+                if form == "float":
+                    c["wrapper"] = lambda b=boxes: nms_kernel.suppress(b, smoke.THRESHOLD,
+                                                                       smoke.ROUNDS)
+                    c["plain"] = lambda b=boxes: nms_kernel.suppress_plain(b, smoke.THRESHOLD,
+                                                                           smoke.ROUNDS)
             err = smoke.max_err(torch, c["wrapper"](), c["plain"]())
             smoke.check(err == 0, f"{tree}: {c['name']} {c['shape']} differs from its plain version")
             out[f"{c['name']} {label} {c['shape']}"] = {
@@ -62,13 +111,9 @@ def measure(tree):
                 "wrapper_ms": smoke.cuda_time_ms(c["wrapper"])}
     boxes = smoke.nms_inputs(torch, dev, batch=1)
     keep = torch.empty(boxes.shape[:2], dtype=torch.bool, device=dev)
-
-    def no_rounds():
-        err = lib.cdll.iqc_suppress(boxes.data_ptr(), keep.data_ptr(), 1, boxes.shape[1],
-                                    smoke.THRESHOLD, 0, torch.cuda.current_stream().cuda_stream)
-        smoke.check(err == 0, f"iqc_suppress failed with CUDA error {err}")
-
-    out[f"suppress request [1,{boxes.shape[1]},4] no round"] = {
+    thr = torch.tensor(smoke.THRESHOLD, dtype=torch.float32, device=dev)
+    no_rounds = k1_launch(torch, lib.fns["iqc_suppress"], form, boxes, thr, keep, 0)
+    out[f"suppress request [1,{boxes.shape[1]},4] no round ({form} threshold)"] = {
         "device_ms": smoke.graph_ms(torch, no_rounds)}
     print(json.dumps(out), flush=True)
 

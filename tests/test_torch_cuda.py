@@ -550,3 +550,127 @@ def test_export_and_reload_on_the_card(cuda, tmp_path):
     v = live.valid
     assert np.array_equal(out.classes[v], live.classes[v])
     assert np.abs(out.boxes[v] - live.boxes[v]).max() <= 1.0
+
+
+# -- training: K1 at validation's shapes, a train step and validate, card vs CPU -------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,k", [(16, 100), (4, 84)])
+def test_suppress_at_training_validation_shapes(cuda, batch, k):
+    """K1 at the trainer's validation shapes (capacity 100 at 640^2, 84
+    anchors at 64 px) and IoU threshold 0.6: the raw launch writes no byte
+    beside its keep mask, and it and the wrapper equal the plain version."""
+    boxes = _boxes(batch, k, seed=k + 7).to(cuda)
+    buf, keep = _guarded((batch, k), cuda)
+    t = torch.tensor(0.6, device=cuda)
+    build.launch(build.library().fns["iqc_suppress"], boxes.device, boxes.data_ptr(),
+                 t.data_ptr(), keep.data_ptr(), batch, k, 16)
+    torch.cuda.synchronize()
+    assert _guards_intact(buf)
+    want = nms_kernel.suppress_plain(boxes.cpu(), 0.6)
+    assert torch.equal(keep.cpu().bool(), want)
+    assert torch.equal(nms_kernel.suppress(boxes, t).cpu(), want)
+
+
+TRAIN_CFG = {"image_size": 64, "batch_size": 4, "max_boxes": 8, "epochs": 1,
+             "width_mult": 0.125, "reg_max": 8, "compute_dtype": "float32",
+             "warmup_epochs": 0, "ema_decay": 0.9,
+             "augmentation": {"hsv_h": 0.015, "hsv_s": 0.7, "hsv_v": 0.4, "translate": 0.1,
+                              "scale": 0.5, "fliplr": 0.5}}
+
+
+def _torch_order_mean(x):
+    return x.mean([d for d in range(x.dim()) if d != 1])
+
+
+def _trained_pair(cuda, steps):
+    """The same trainer on the card and on the CPU (the same seeded init,
+    the same CPU-drawn mosaic and augmentation), ``steps`` corpus steps
+    each: (card trainer, CPU trainer, card parts, CPU parts). The cls_out
+    kernels are scaled by 5 at the start, so that anchors' scores lie
+    apart: a fresh network scores every anchor within ~1e-8, and which of
+    near-equal anchors the assignment's top-k and the NMS capacity take
+    then follows each device's rounding."""
+    from iqc_tpu_torch.data.yolo_dataset import DetectionLoader, SyntheticDefectDataset
+    from iqc_tpu_torch.train.train_yolo import YOLOTrainer
+
+    out = []
+    idx = np.random.default_rng(0).integers(0, 12, (steps, 4)).astype(np.int32)
+    for device in (cuda, "cpu"):
+        tr = YOLOTrainer(TRAIN_CFG, device=device)
+        tr.build(steps_per_epoch=3)
+        with torch.no_grad():
+            for k, p in tr.state.params.items():
+                if "cls_out.weight" in k:
+                    p.mul_(5.0)
+                    tr.ema_params[k].copy_(p)
+        tr.initial = {k: p.detach().cpu().clone() for k, p in tr.state.params.items()}
+        loader = DetectionLoader(SyntheticDefectDataset(12, 64, 8, seed=0), 4, mosaic_prob=0.0,
+                                 mixup_prob=0.0)
+        corpus = tr._maybe_device_corpus(loader)
+        out.append((tr, tr._corpus_epoch(corpus, idx)))
+    return out[0][0], out[1][0], out[0][1], out[1][1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cpu_stats", ["torch_order", "xla_order"])
+def test_train_steps_on_the_card_equal_the_cpu(cuda, cpu_stats, monkeypatch):
+    """Two float32 steps (mosaic 1.0, augmentation) on the card and on the
+    CPU: loss parts within 1e-4 relative (or 1e-6 of the total loss) where
+    the CPU sums the batch statistics with PyTorch's reduction, as the card
+    does; within 1e-3 where it sums them in XLA's sequential order (the
+    JAX package's; the fast variance mean(x^2) - mean^2 cancels on flat
+    images, so the order moves the loss by ~2e-4). The statistics within
+    1e-3 of each leaf's largest magnitude; the change of the parameters and of the EMA over the two steps within 5e-2
+    of the largest change (the backward through those statistics carries
+    the same magnification into the gradients, and the second update runs
+    at the full learning rate)."""
+    from iqc_tpu_torch.models import layers
+
+    if cpu_stats == "torch_order":
+        monkeypatch.setattr(layers, "channel_mean", _torch_order_mean)
+    gpu, cpu, pg, pc = _trained_pair(cuda, 2)
+    tol = 1e-4 if cpu_stats == "torch_order" else 1e-3
+    for g, c in zip(pg, pc):
+        for k in ("loss", "box_loss", "cls_loss", "dfl_loss", "num_fg"):
+            np.testing.assert_allclose(float(g[k]), float(c[k]), rtol=tol,
+                                       atol=1e-6 * abs(float(c["loss"])), err_msg=k)
+    for k, b in cpu.state.batch_stats.items():
+        a = gpu.state.batch_stats[k].cpu()
+        assert float((a - b).abs().max()) <= 1e-3 * max(1.0, float(b.abs().max())), k
+    for a, b in ((gpu.state.params, cpu.state.params), (gpu.ema_params, cpu.ema_params)):
+        moved = max(float((b[k].detach() - cpu.initial[k]).abs().max()) for k in b)
+        err = max(float((a[k].detach().cpu() - b[k].detach()).abs().max()) for k in b)
+        assert moved > 0 and err <= 5e-2 * moved, (err, moved)
+
+
+@pytest.mark.cuda
+def test_trainer_validate_on_the_card_equals_the_cpu(cuda):
+    """validate and the EMA detections of the same trained state on the
+    card (K1 inside a captured graph) and on the CPU: the same detections
+    per image (classes equal, boxes within 1e-3 px, scores within 1e-5),
+    mAP50 and mAP50-95 within 1e-6."""
+    from iqc_tpu_torch.data.yolo_dataset import DetectionLoader, SyntheticDefectDataset
+
+    gpu, cpu, _, _ = _trained_pair(cuda, 1)
+    with torch.no_grad():
+        for k, v in cpu.state.params.items():
+            gpu.state.params[k].copy_(v)
+        for src, dst in ((cpu.state.batch_stats, gpu.state.batch_stats),
+                         (cpu.ema_params, gpu.ema_params)):
+            for k, v in src.items():
+                dst[k].copy_(v)
+    val = SyntheticDefectDataset(8, 64, 8, seed=1)
+    loader = lambda: DetectionLoader(val, 4, mosaic_prob=0.0, mixup_prob=0.0, shuffle=False)
+    a, b = gpu.validate(loader()), cpu.validate(loader())
+    for k in ("mAP50", "mAP50_95"):
+        assert abs(a[k] - b[k]) <= 1e-6
+    images = np.stack([val.load(i)[0] for i in range(4)])
+    for g, c in zip(gpu.predict_batches([images]), cpu.predict_batches([images])):
+        assert len(g["classes"]) == len(c["classes"])
+        og = np.lexsort((g["boxes"][:, 0], g["classes"]))
+        oc = np.lexsort((c["boxes"][:, 0], c["classes"]))
+        np.testing.assert_array_equal(g["classes"][og], c["classes"][oc])
+        np.testing.assert_allclose(g["boxes"][og], c["boxes"][oc], rtol=0, atol=1e-3)
+        np.testing.assert_allclose(g["scores"][og], c["scores"][oc], rtol=0, atol=1e-5)
