@@ -19,7 +19,12 @@ Phases, each under a deadline and printed with its wall time:
      4 x predict and 1 x predict_batch of 8 on seeded synthetic 640^2 defect
      images, with every kernel's launch counter read around it;
   5. int8 cross-check: one request again on the CPU with the card's quantized
-     networks and scales carried across, compared with the card's;
+     networks and scales carried across, compared with the card's; then the
+     int8 ResNet (streaming walk) on the crops of the card's boxes, card
+     against CPU layer by layer (input codes, int32 accumulators, bfloat16
+     affine outputs, block outputs, features, logits), on the same crops and
+     on each device's own crops of the same boxes, with the first layer where
+     the two part;
   6. fp32: the same profile in float32 (4 x predict, 1 x predict_batch of 8,
      launch counters read around it) and one request cross-checked against
      the CPU; then one predict at edge.precision bf16;
@@ -69,7 +74,19 @@ Phases, each under a deadline and printed with its wall time:
      (kernels, device ms, idle share), peak memory, validation ms per batch;
      two float32 steps and one bf16 step at batch 2 card against CPU from the
      same state and draws; K1 at [16,100,4] and [16,84,4], threshold 0.6,
-     between guard regions, with its device, wrapper, plain and bound ms.
+     between guard regions, with its device, wrapper, plain and bound ms;
+ 12. classifier training: an image-folder tree (train/val/test, 48/16/16
+     images per class) rendered at 256^2 by the port's MVTecStyleRenderer
+     and written by its PNG writer into a temporary directory; `python -m
+     iqc_tpu_torch.train.train_resnet --data-dir <tree> --epochs 1 --config
+     <the resnet_config.yaml profile as JSON>` in a process of its own
+     (ResNet-50 224^2, batch 32, bfloat16, Adam + cosine, the augmentation
+     block, class weights, balanced sampling, the device-corpus tier), its
+     final checkpoint served by ResNetClassifier card against CPU; train-step
+     ms and images/s at bf16 and fp32 (median of 10 after 3), one profiled
+     step (kernels, device ms, idle share), peak memory, evaluate ms per
+     batch of 32; two float32 steps at batch 4 card against CPU from the
+     same state and draws; K1-K3's launch counters around the phase (none).
 Then one JSON line of kernel measurements, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits nonzero without that line.
 Needs one CUDA device; exits nonzero at once without one.
@@ -700,6 +717,79 @@ def phase_cross_check_int8(torch, det_gpu, image, conf, label="int8"):
     check(qa_g["quality_grade"] == qa_c["quality_grade"]
           and qa_g["pass_fail_status"] == qa_c["pass_fail_status"], "int8 grades differ")
     print(f"{label} grade {qa_g['quality_grade']} / {qa_g['pass_fail_status']} on both")
+    if label == "int8":
+        x = det_gpu._preprocess(det_gpu._upload(image)[None])
+        return int8_resnet_layer_diff(torch, ens, det_cpu.ensemble_predictor, x, g.boxes[0],
+                                      c.boxes[0])
+    return None
+
+
+def _layer_rows(torch, got, want):
+    """Per traced layer: elements that differ and the largest difference
+    (codes and accumulators as integers), card against CPU."""
+    rows = []
+    for (name, a), (name_b, b) in zip(got, want):
+        check(name == name_b and a.shape == b.shape, f"traces part at {name} / {name_b}")
+        a = a.detach().cpu()
+        if a.dtype in (torch.int8, torch.int32):
+            d = (a.long() - b.long()).abs()
+        else:
+            d = (a.float() - b.float()).abs()
+        rows.append({"layer": name, "dtype": str(a.dtype).replace("torch.", ""),
+                     "n_diff": int((d > 0).sum()), "n": a.numel(), "max_diff": float(d.max()),
+                     "max_abs": float(b.float().abs().max())})
+    return rows
+
+
+def int8_resnet_layer_diff(torch, ens_g, ens_c, x_g, boxes_g, boxes_c):
+    """The int8 ResNet (streaming walk) on crops of the request's boxes, card
+    against CPU layer by layer: on the same crops (the card's), on each
+    device's crops of the card's boxes, and on each device's crops of its
+    own boxes (the served path). Prints and returns, for each, the first
+    layer where the two part and by how much."""
+    from iqc_tpu_torch.models import resnet_int8_stream
+    from iqc_tpu_torch.ops import image as imops
+
+    fwd_g, fwd_c = ens_g.full_forward, ens_c.full_forward
+    check(getattr(fwd_g.resnet, "stream", False), "the int8 ResNet is not the streaming walk")
+    kc, ci = fwd_g.max_classified, fwd_g.classifier_input
+    x_c = x_g.cpu()
+
+    def crops(fwd, x, boxes):
+        b = torch.as_tensor(boxes[:kc])[None].to(x.device)
+        c = imops.crop_and_resize(x, b, (ci, ci), fwd.compute_dtype)
+        return imops.normalize_imagenet(c.reshape(kc, ci, ci, 3))
+
+    def walk(fwd, crops_):
+        trace = []
+        r = fwd.resnet
+        resnet_int8_stream.apply(r.q, crops_, r.scales, r.stage_sizes, trace=trace)
+        return [(n, t.cpu()) for n, t in trace]
+
+    with torch.inference_mode():
+        card_crops = crops(fwd_g, x_g, boxes_g)
+        card = walk(fwd_g, card_crops)
+        inputs = {"same_crops": card_crops.cpu(), "same_boxes": crops(fwd_c, x_c, boxes_g),
+                  "own_boxes": crops(fwd_c, x_c, boxes_c)}
+        rows = {k: _layer_rows(torch, card, walk(fwd_c, v)) for k, v in inputs.items()}
+    box_err = float(abs(boxes_g[:kc] - boxes_c[:kc]).max())
+    out = {"crops": kc, "boxes_max_abs_err_px": box_err}
+    for key, r in rows.items():
+        first = next((row for row in r if row["n_diff"]), None)
+        out[key] = {"crops_max_abs_err": float((inputs[key] - card_crops.cpu()).abs().max()),
+                    "first_diff": first, "logits_max_abs_err": r[-1]["max_diff"],
+                    "layers_differing": sum(1 for row in r if row["n_diff"]),
+                    "layers": len(r)}
+        where = ("no layer differs" if first is None else
+                 f"first differs at {first['layer']} ({first['dtype']}): {first['n_diff']} of "
+                 f"{first['n']} elements, by up to {first['max_diff']:.4g} (values up to "
+                 f"{first['max_abs']:.4g})")
+        print(f"int8 ResNet card vs CPU, {key.replace('_', ' ')} ({kc} crops; crops within "
+              f"{out[key]['crops_max_abs_err']:.3e}): {where}; "
+              f"{out[key]['layers_differing']} of {len(r)} traced tensors differ; logits "
+              f"within {r[-1]['max_diff']:.3e}")
+    print(f"the request's boxes, card vs CPU: within {box_err:.3e} px")
+    return out
 
 
 def phase_fp32_bf16(torch, images, conf):
@@ -1777,6 +1867,209 @@ def phase_training(torch):
     return out
 
 
+def _write_classifier_tree(root, size=256, counts=(("train", 48), ("val", 16), ("test", 16))):
+    """An image-folder tree (split/class/NNN.png) rendered by the port's
+    MVTecStyleRenderer and written by its PNG writer."""
+    from iqc_tpu_torch.config import DEFECT_CLASSES
+    from iqc_tpu_torch.data.mvtec_synth import MVTecStyleRenderer
+    from iqc_tpu_torch.runtime.codec import write_png
+
+    r = MVTecStyleRenderer(size=size, seed=2024)
+    i = 0
+    for split, n in counts:
+        for cls in DEFECT_CLASSES:
+            os.makedirs(os.path.join(root, split, cls))
+            for k in range(n):
+                write_png(os.path.join(root, split, cls, f"{k:03d}.png"), r.render(cls, i)[0])
+                i += 1
+    return i
+
+
+def _classifier_step_times(torch, config, train_ds, steps=10, warmup=3):
+    """Classifier train-step wall ms on the device corpus at the profile's
+    batch (median of ``steps`` after ``warmup``), one profiled step, the
+    peak memory, and the trainer."""
+    import numpy as np
+
+    from iqc_tpu_torch.train.train_resnet import ResNetTrainer
+
+    trainer = ResNetTrainer(config, device="cuda")
+    trainer.setup_data(train_ds)
+    trainer.build(steps_per_epoch=max(len(trainer.train_loader), 1))
+    corpus = trainer._maybe_device_corpus()
+    check(corpus is not None, "the training set did not take the device-corpus tier")
+    b = config["batch_size"]
+    rows = np.random.default_rng(0).integers(0, corpus[0].shape[0], (warmup + steps + 1, b))
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for i, row in enumerate(rows[:-1]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = trainer._corpus_epoch(corpus, row[None])
+        torch.cuda.synchronize()
+        if i >= warmup:
+            ms.append((time.perf_counter() - t) * 1e3)
+        check(bool(torch.isfinite(out[0]["loss"])), "a non-finite classifier loss")
+    peak = torch.cuda.max_memory_allocated()
+    wall, n, busy = _profiled_ms(torch, lambda: trainer._corpus_epoch(corpus, rows[-1][None]))
+    med = sorted(ms)[len(ms) // 2]
+    return trainer, {"step_ms": ms, "median_ms": med, "images_per_s": b / med * 1e3,
+                     "profiled_step": {"wall_ms": wall, "kernels": n, "device_ms": busy,
+                                       "idle": 1 - busy / wall},
+                     "max_memory_allocated": peak}
+
+
+def phase_classifier_training(torch):
+    """Phase 12: the classifier trainer's entry point over an image-folder
+    tree at full width, its checkpoint served card against CPU, then step
+    times, evaluate, and two float32 steps card against CPU."""
+    import tempfile
+
+    import numpy as np
+
+    from iqc_tpu_torch.config import RESNET_TRAINING_PROFILE
+    from iqc_tpu_torch.data.pipeline import ImageFolderDataset
+    from iqc_tpu_torch.models import ResNetClassifier
+    from iqc_tpu_torch.models import layers
+    from iqc_tpu_torch.train.train_resnet import ResNetTrainer, config_from_profile
+
+    out = {}
+    reset_launches()
+    # 1. the tree, rendered at 256^2 (resized to 224^2 by the loader)
+    tmp = tempfile.mkdtemp(prefix="iqc_cls_")
+    data = os.path.join(tmp, "data")
+    t = time.perf_counter()
+    n_files = _write_classifier_tree(data)
+    print(f"image-folder tree: {n_files} PNG files at 256^2 (48 train, 16 val, 16 test per "
+          f"class) in {time.perf_counter() - t:.2f} s")
+    # 2. the entry point in a process of its own
+    profile = json.loads(json.dumps(RESNET_TRAINING_PROFILE))
+    profile["training"]["checkpoint_dir"] = os.path.join(tmp, "ckpt")
+    path = os.path.join(tmp, "resnet_profile.json")
+    with open(path, "w") as f:
+        json.dump(profile, f)
+    cmd = [sys.executable, "-m", "iqc_tpu_torch.train.train_resnet", "--data-dir", data,
+           "--epochs", "1", "--config", path]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=240)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-3000:])
+    check(proc.returncode == 0, f"the classifier training entry point exited {proc.returncode}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    final = report["train"]["final_metrics"]
+    check(np.isfinite(final["loss"]) and np.isfinite(final["val_loss"]), f"losses {final}")
+    cm = np.asarray(report["test"]["confusion_matrix"])
+    check(cm.shape == (5, 5) and int(cm.sum()) == 80, f"test confusion matrix {cm.tolist()}")
+    check(not any(report["kernel_launches"].values()),
+          f"the classifier run launched {report['kernel_launches']} (none expected)")
+    ckpt = os.path.join(tmp, "ckpt", "final_model.msgpack")
+    check(os.path.exists(ckpt) and os.path.exists(ckpt + ".json"), "no checkpoint written")
+    out["entry_point"] = {"command": " ".join(cmd[1:]), "wall_s": wall, "report": report}
+    print(f"python -m iqc_tpu_torch.train.train_resnet --epochs 1 (the resnet_config.yaml "
+          f"profile: ResNet-50 224^2, batch 32, bf16, Adam + cosine, the augmentation block, "
+          f"class weights, balanced sampling): rc 0 in {wall:.2f} s, train loss "
+          f"{final['loss']:.5f}, val loss {final['val_loss']:.5f}, val accuracy "
+          f"{final['val_accuracy']:.4f}, test accuracy {report['test']['accuracy']:.4f}, "
+          f"launches {report['kernel_launches']}, checkpoint written")
+
+    # 3. the checkpoint served by ResNetClassifier, card against CPU (float32)
+    test_ds = ImageFolderDataset(os.path.join(data, "test"), (224, 224))
+    frames = [test_ds.load(i)[0] for i in range(0, 80, 10)]
+    clfs = {d: ResNetClassifier(model_path=ckpt, device=d) for d in ("cuda", "cpu")}
+    check(clfs["cuda"].get_model_info()["weights_source"] == "checkpoint", "checkpoint not loaded")
+    res = {d: c.predict_batch(frames) for d, c in clfs.items()}
+    prob_err = max(abs(a["class_probabilities"][k] - b["class_probabilities"][k])
+                   for a, b in zip(res["cuda"], res["cpu"]) for k in a["class_probabilities"])
+    check(all(a["predicted_class"] == b["predicted_class"] for a, b in zip(res["cuda"],
+                                                                          res["cpu"])),
+          "the served classes differ card vs CPU")
+    check(prob_err <= 1e-4, f"served probabilities differ by {prob_err}")
+    out["served_checkpoint"] = {"frames": len(frames), "probs_max_abs_err": prob_err}
+    print(f"the trained checkpoint in ResNetClassifier (float32) on 8 test images: classes "
+          f"equal, probabilities within {prob_err:.3e}, card vs CPU")
+    del clfs
+
+    # 4. step times at batch 32, 224^2: bfloat16, float32 (TF32 off); evaluate
+    train_ds = ImageFolderDataset(os.path.join(data, "train"), (224, 224))
+    base = {**config_from_profile(RESNET_TRAINING_PROFILE), "checkpoint_dir": tmp}
+    times = {}
+    for label, dtype in (("bf16", "bfloat16"), ("fp32", "float32")):
+        trainer, times[label] = _classifier_step_times(torch, {**base, "compute_dtype": dtype},
+                                                       train_ds)
+        if label == "bf16":
+            from iqc_tpu_torch.data.pipeline import ArrayDataset, DataLoader
+
+            imgs, labels = (t[:96].cpu().numpy() for t in trainer._device_corpus)
+            loader = DataLoader(ArrayDataset(imgs, labels), 32, shuffle=False)
+            trainer.evaluate(loader)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(3):
+                trainer.evaluate(loader)
+            times["evaluate_ms_per_batch_32"] = (time.perf_counter() - t) * 1e3 / 9
+        del trainer
+        torch.cuda.empty_cache()
+        r = times[label]
+        print(f"classifier train step {label}: median {r['median_ms']:.2f} ms "
+              f"({r['images_per_s']:.1f} images/s) of {', '.join(f'{v:.2f}' for v in r['step_ms'])}"
+              f"; profiled step {r['profiled_step']['wall_ms']:.2f} ms wall, "
+              f"{r['profiled_step']['kernels']} kernels, {r['profiled_step']['device_ms']:.2f} ms "
+              f"device, idle {100 * r['profiled_step']['idle']:.1f}%; peak memory "
+              f"{r['max_memory_allocated'] / 2**20:.0f} MiB")
+    print(f"classifier evaluate (bf16, host batches uploaded) "
+          f"{times['evaluate_ms_per_batch_32']:.2f} ms per batch of 32")
+    out["step_times"] = times
+
+    # 5. card against CPU: two float32 steps at batch 4 from the same fresh
+    # state and the same CPU-drawn augmentation and dropout; the CPU sums the
+    # batch statistics in PyTorch's order (the card's), then in XLA's
+    xla_order = layers.channel_mean
+
+    def torch_order(x):
+        return x.mean([d for d in range(x.dim()) if d != 1])
+
+    small = ImageFolderDataset(os.path.join(data, "val"), (224, 224))
+    idx = np.array([[0, 17, 35, 52], [70, 9, 44, 61]])
+
+    def run(device, stats):
+        layers.channel_mean = stats
+        try:
+            tr = ResNetTrainer({**base, "batch_size": 4, "compute_dtype": "float32"},
+                               device=device)
+            tr.setup_data(small)
+            tr.build(steps_per_epoch=20)
+            return tr, tr._corpus_epoch(tr._maybe_device_corpus(), idx)
+        finally:
+            layers.channel_mean = xla_order
+
+    card = run("cuda", xla_order)
+    cross = {}
+    for label, stats, tol in (("fp32_vs_cpu_torch_order", torch_order, 1e-4),
+                              ("fp32_vs_cpu_xla_order", xla_order, 1e-3)):
+        cpu = run("cpu", stats)
+        errs = [abs(float(g["loss"]) - float(c["loss"])) / abs(float(c["loss"]))
+                for g, c in zip(card[1], cpu[1])]
+        p_err = max(float((card[0].state.params[k].detach().cpu() - v.detach()).abs().max())
+                    for k, v in cpu[0].state.params.items())
+        check(errs[0] <= tol and errs[1] <= 2e-3,
+              f"classifier {label}: losses differ by {errs} relative")
+        check(p_err <= 5e-3, f"classifier {label}: params differ by {p_err}")
+        cross[label] = {"rel_loss_err_per_step": errs, "params_max_abs_err": p_err,
+                        "losses": [float(c["loss"]) for c in cpu[1]]}
+        print(f"classifier card vs CPU, {label}, ResNet-50 224^2 batch 4, two steps from the "
+              f"same state and draws: losses within {', '.join(f'{e:.3e}' for e in errs)} "
+              f"relative, params within {p_err:.3e}")
+    out["card_vs_cpu"] = cross
+    del card
+    torch.cuda.empty_cache()
+    out["launches"] = read_launches()
+    print(f"K1-K3 launches in this phase: {out['launches']} (in-process; the entry point's "
+          f"own run reported {report['kernel_launches']})")
+    check(not any(out["launches"].values()), "the classifier phase launched a kernel")
+    return out
+
+
 def main() -> int:
     t_all = time.perf_counter()
     try:
@@ -1804,7 +2097,7 @@ def main() -> int:
             det = build_detector(torch)
             det, launches, conf = phase_main_path(torch, images, det)
         with Phase("int8 cross-check", 240):
-            phase_cross_check_int8(torch, det, images[0], conf)
+            int8_layers = phase_cross_check_int8(torch, det, images[0], conf)
         with Phase("fp32 and bf16", 300):
             det32, det16, launches32 = phase_fp32_bf16(torch, images, conf)
         with Phase("serving", 300):
@@ -1823,6 +2116,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         with Phase("training", 300):
             training = phase_training(torch)
+        torch.cuda.empty_cache()
+        with Phase("classifier training", 300):
+            classifier = phase_classifier_training(torch)
     except Exception as e:  # every phase failure ends the run without a result
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)
         return 1
@@ -1840,13 +2136,17 @@ def main() -> int:
         if counter in standalone:
             row["segmentator_shapes"] = standalone[counter]
         row["launches_training"] = training["launches"][counter]
+        row["launches_classifier_training"] = classifier["launches"][counter]
         if counter == "suppress":
             row["training_shape"] = training["k1"]
+    print(json.dumps({"int8_resnet_layers": int8_layers}))
     print(json.dumps({"captured": captured}))
     print(json.dumps({"networks": networks}))
     print(json.dumps({"preprocessing": preprocessing}))
     for key in ("entry_point", "served_checkpoint", "step_times", "card_vs_cpu"):
         print(json.dumps({f"training_{key}": training[key]}))
+    for key in ("entry_point", "served_checkpoint", "step_times", "card_vs_cpu"):
+        print(json.dumps({f"classifier_{key}": classifier[key]}))
     print(f"total wall time {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -63,6 +63,35 @@ YOLO_TRAINING_PROFILE: Dict[str, Any] = {
 }
 
 
+# The ResNet-50 classifier's training profile of config/resnet_config.yaml
+# (its training block and augmentation.train), held as data for the same
+# reason; tests hold it equal to the YAML.
+RESNET_TRAINING_PROFILE: Dict[str, Any] = {
+    "training": {
+        "num_classes": 5, "image_size": 224, "batch_size": 32, "epochs": 50,
+        "learning_rate": 0.001, "weight_decay": 0.0001, "optimizer": "adam",
+        "scheduler": "cosine", "step_size": 10, "gamma": 0.1, "label_smoothing": 0.1,
+        "use_class_weights": True, "balanced_sampling": True, "val_frequency": 1,
+        "early_stopping_patience": 10, "checkpoint_dir": "checkpoints/resnet",
+        "stage_sizes": [3, 4, 6, 3], "compute_dtype": "bfloat16", "seed": 42,
+    },
+    "augmentation": {
+        "train": {
+            "random_resize_crop": {"size": 224, "scale": [0.8, 1.0], "ratio": [0.75, 1.33]},
+            "random_horizontal_flip": {"probability": 0.5},
+            "random_vertical_flip": {"probability": 0.1},
+            "random_rotation": {"degrees": 15},
+            "color_jitter": {"brightness": 0.2, "contrast": 0.2, "saturation": 0.2,
+                             "hue": 0.1},
+            "random_grayscale": {"probability": 0.1},
+            "random_erasing": {"enabled": True, "probability": 0.25, "scale": [0.02, 0.33],
+                               "ratio": [0.3, 3.3]},
+            "gaussian_blur": {"enabled": True, "probability": 0.1, "kernel_size": 3},
+        },
+    },
+}
+
+
 def _merge(base: Dict[str, Any], override: Dict[str, Any]) -> Dict[str, Any]:
     out = dict(base)
     for k, v in (override or {}).items():
@@ -119,6 +148,7 @@ class ModelConfig:
 @dataclass
 class PreprocessingConfig:
     resize: Optional[Tuple[int, int]] = (640, 640)
+    normalize: bool = True
     denoise: bool = False
     enhance_contrast: bool = False
 
@@ -126,6 +156,7 @@ class PreprocessingConfig:
 @dataclass
 class ProcessingConfig:
     batch_size: int = 32
+    max_workers: int = 4  # read by no path: the networks batch on the device
     input_size: Tuple[int, int] = (640, 640)
     preprocessing: PreprocessingConfig = field(default_factory=PreprocessingConfig)
 
@@ -176,6 +207,7 @@ class EdgeConfig:
     yolo_int8_stream: bool = True
     resnet_int8_stream: bool = True
     max_batch_size: int = 32
+    compilation_cache_dir: str = ".xla_cache"  # the JAX package's compile cache; unread here
     sparsity: float = 0.0
     structured_pruning: bool = False
 
@@ -188,10 +220,12 @@ class EdgeConfig:
 
 @dataclass
 class QCSpecificConfig:
-    """Per-class confidence floors, severity-rule thresholds and
-    post-processing overrides (empty = the model block's values)."""
+    """Per-class confidence floors, per-class training-loss weights,
+    severity-rule thresholds and post-processing overrides (empty = the
+    model block's values)."""
 
     confidence_thresholds: Dict[str, float] = field(default_factory=dict)
+    class_weights: Dict[str, float] = field(default_factory=dict)
     nms_threshold: Optional[float] = None
     max_detections_per_image: Optional[int] = None
     severity_rules: Dict[str, Dict[str, float]] = field(default_factory=dict)
@@ -200,6 +234,9 @@ class QCSpecificConfig:
         for name, v in self.confidence_thresholds.items():
             if not 0.0 <= float(v) <= 1.0:
                 raise ValueError(f"confidence_thresholds[{name!r}] out of range: {v}")
+        for name, v in self.class_weights.items():
+            if float(v) < 0.0:
+                raise ValueError(f"class_weights[{name!r}] must be >= 0: {v}")
         if self.nms_threshold is not None and not 0.0 <= self.nms_threshold <= 1.0:
             raise ValueError(f"qc_specific.nms_threshold out of range: {self.nms_threshold}")
         if self.max_detections_per_image is not None and self.max_detections_per_image < 1:
@@ -216,6 +253,13 @@ class QCSpecificConfig:
         if not self.confidence_thresholds:
             return None
         return [float(self.confidence_thresholds.get(c, default)) for c in defect_classes]
+
+    def weight_vector(self, defect_classes: Sequence[str]) -> Optional[List[float]]:
+        """[C] per-class loss weights (1.0 where a class is not named), or
+        None when the block is empty."""
+        if not self.class_weights:
+            return None
+        return [float(self.class_weights.get(c, 1.0)) for c in defect_classes]
 
     def severity_array(self) -> Optional[List[List[float]]]:
         """[[major_conf, major_area_ratio, cls_major_conf],
@@ -535,6 +579,9 @@ class SystemConfig:
     def update(self, patch: Dict[str, Any]) -> "SystemConfig":
         """Apply a nested dict patch and revalidate."""
         return SystemConfig.from_dict(_merge(self.to_dict(), patch))
+
+    def json(self) -> str:
+        return json.dumps(self.to_dict(), default=str)
 
 
 def _build(cls, raw: Dict[str, Any]):

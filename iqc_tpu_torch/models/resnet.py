@@ -1,8 +1,13 @@
-"""ResNet-50 (v1 bottleneck) defect classifier for inference, with the head
-Dense(512) -> ReLU -> Dense(num_classes) (dropout is inactive at inference).
+"""ResNet-50 (v1 bottleneck) defect classifier, with the head Dropout(0.5)
+-> Dense(512) -> ReLU -> Dropout(0.3) -> Dense(num_classes).
 
 The forward takes NHWC float [B,H,W,3] (ImageNet-normalised) and returns
-logits [B,C]. Inside, activations are NCHW. BatchNorm epsilon is 1e-5.
+logits [B,C]. Inside, activations are NCHW. BatchNorm epsilon is 1e-5 and
+its momentum 0.9. In evaluation mode the dropouts are inactive; in training
+mode (``module.train()``) BatchNorm uses the batch's statistics and each
+dropout keeps a value where its keep mask is set, scaled by 1/keep, as
+Flax's ``nn.Dropout`` does. The masks come from the caller
+(``dropout_masks``) or from the module's CPU generator (``dropout_rng``).
 
 Padding follows the checkpoints' Flax definition: the stem conv pads (3,3)
 and the max pool (1,1), explicitly; every other conv pads "SAME", which for
@@ -16,14 +21,14 @@ pooled features and the head stay float32.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from iqc_tpu_torch.models.layers import BatchNorm, conv2d, exact_float32
+from iqc_tpu_torch.models.layers import BatchNorm, conv2d, exact_float32, init_flax
 from iqc_tpu_torch.models.yolo import SEVERITY_NAMES
 from iqc_tpu_torch.ops import image as imops
 from iqc_tpu_torch.ops.jit_utils import hoisted_jit
@@ -50,21 +55,31 @@ class SameConv(nn.Conv2d):
         return conv2d(self, x)
 
 
+RESNET50_STAGES = (3, 4, 6, 3)
+RESNET101_STAGES = (3, 4, 23, 3)
+HEAD_DROPOUT = (0.5, 0.3)
+BN_MOMENTUM = 0.9
+
+
+def _norm(features: int) -> BatchNorm:
+    return BatchNorm(features, eps=1e-5, momentum=BN_MOMENTUM)
+
+
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 (stride) -> 1x1 (x4), projection shortcut on mismatch."""
 
     def __init__(self, cin: int, features: int, strides: int):
         super().__init__()
         self.conv1 = SameConv(cin, features, 1)
-        self.bn1 = BatchNorm(features, eps=1e-5)
+        self.bn1 = _norm(features)
         self.conv2 = SameConv(features, features, 3, strides)
-        self.bn2 = BatchNorm(features, eps=1e-5)
+        self.bn2 = _norm(features)
         self.conv3 = SameConv(features, features * 4, 1)
-        self.bn3 = BatchNorm(features * 4, eps=1e-5)
+        self.bn3 = _norm(features * 4)
         self.project = cin != features * 4 or strides != 1
         if self.project:
             self.downsample_conv = SameConv(cin, features * 4, 1, strides)
-            self.downsample_bn = BatchNorm(features * 4, eps=1e-5)
+            self.downsample_bn = _norm(features * 4)
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
@@ -75,12 +90,15 @@ class Bottleneck(nn.Module):
 
 
 class ResNet50(nn.Module):
-    def __init__(self, num_classes: int = 5, stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 head_hidden: int = 512, dtype: torch.dtype = torch.float32):
+    def __init__(self, num_classes: int = 5, stage_sizes: Sequence[int] = RESNET50_STAGES,
+                 head_hidden: int = 512, dtype: torch.dtype = torch.float32,
+                 head_dropout: Tuple[float, float] = HEAD_DROPOUT):
         super().__init__()
         self.compute_dtype = dtype
+        self.head_dropout = tuple(head_dropout)
+        self.dropout_rng = torch.Generator().manual_seed(0)
         self.stem_conv = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
-        self.stem_bn = BatchNorm(64, eps=1e-5)
+        self.stem_bn = _norm(64)
         cin = 64
         self.blocks = []
         for i, count in enumerate(stage_sizes):
@@ -92,9 +110,27 @@ class ResNet50(nn.Module):
         self.head_dense1 = nn.Linear(cin, head_hidden)
         self.head_dense2 = nn.Linear(head_hidden, num_classes)
 
-    def forward(self, x: torch.Tensor, return_features: bool = False) -> torch.Tensor:
+    def draw_dropout_masks(self, batch: int, gen: torch.Generator) -> Tuple[torch.Tensor, ...]:
+        """The head's two keep masks for a batch, bool [B,2048] and [B,512]
+        on the CPU, each value kept with probability 1 - rate."""
+        dims = (self.head_dense1.in_features, self.head_dense1.out_features)
+        return tuple(torch.rand((batch, d), generator=gen) >= rate
+                     for d, rate in zip(dims, self.head_dropout))
+
+    @staticmethod
+    def _dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+        if rate <= 0.0:
+            return x
+        keep = keep.to(x.device, non_blocking=True)
+        return torch.where(keep, x * (1.0 / (1.0 - rate)), torch.zeros((), device=x.device))
+
+    def forward(self, x: torch.Tensor, return_features: bool = False,
+                dropout_masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
         """x: NHWC float [B,H,W,3] -> logits [B,C], or with
-        ``return_features`` the pooled float32 features [B,2048]."""
+        ``return_features`` the pooled float32 features [B,2048]. In training
+        mode ``dropout_masks`` (bool [B,2048], [B,512]) are the head's keep
+        masks; None draws them from ``dropout_rng``."""
         x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         x = F.relu(self.stem_bn(conv2d(self.stem_conv, x)))
         x = F.max_pool2d(x, 3, 2, 1)
@@ -103,7 +139,24 @@ class ResNet50(nn.Module):
         features = torch.mean(x, dim=(2, 3)).to(torch.float32)
         if return_features:
             return features
-        return self.head_dense2(F.relu(self.head_dense1(features)))
+        if not self.training:
+            return self.head_dense2(F.relu(self.head_dense1(features)))
+        if dropout_masks is None:
+            dropout_masks = self.draw_dropout_masks(features.shape[0], self.dropout_rng)
+        y = self._dropout(features, dropout_masks[0], self.head_dropout[0])
+        y = F.relu(self.head_dense1(y))
+        y = self._dropout(y, dropout_masks[1], self.head_dropout[1])
+        return self.head_dense2(y)
+
+
+def init_weights(module: ResNet50, seed: int) -> None:
+    """A fresh network with Flax's initializers (``layers.init_flax``) and
+    each block's ``bn3`` scale at zero, so every residual block starts as
+    the identity of its shortcut."""
+    init_flax(module, seed)
+    with torch.no_grad():
+        for name in module.blocks:
+            getattr(module, name).bn3.weight.zero_()
 
 
 SEV_MINOR, SEV_MAJOR, SEV_CRITICAL = 0, 1, 2

@@ -17,7 +17,7 @@ walked as the JAX package's ``models/resnet_int8_stream.py``:
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -26,26 +26,43 @@ from iqc_tpu_torch.models.resnet_int8 import (BF16, dequant_affine, head, nn_max
                                               quantize_codes)
 
 
+Trace = Optional[List[Tuple[str, torch.Tensor]]]
+
+
 def _conv_affine(q_in: torch.Tensor, s_in: torch.Tensor, layer: Dict, stride: int = 1,
-                 padding="SAME") -> torch.Tensor:
+                 padding="SAME", trace: Trace = None, name: str = "") -> torch.Tensor:
     """int8 codes -> int32 conv -> bfloat16 dequant affine (BatchNorm folded)."""
     acc = conv_int8(q_in, layer["w"], stride, padding)
-    return dequant_affine(acc, (s_in * layer["mult"]).to(BF16), layer["bias_bf16"])
+    out = dequant_affine(acc, (s_in * layer["mult"]).to(BF16), layer["bias_bf16"])
+    if trace is not None:
+        trace += [(f"{name}.acc", acc), (f"{name}.affine", out)]
+    return out
+
+
+def _codes(y: torch.Tensor, scale: torch.Tensor, trace: Trace, name: str) -> torch.Tensor:
+    q = quantize_codes(y, scale)
+    if trace is not None:
+        trace.append((f"{name}.codes", q))
+    return q
 
 
 def apply(q: Dict, images: torch.Tensor, act_scales: torch.Tensor,
-          stage_sizes: Sequence[int] = (3, 4, 6, 3)) -> torch.Tensor:
+          stage_sizes: Sequence[int] = (3, 4, 6, 3), trace: Trace = None) -> torch.Tensor:
     """Streaming int8 forward of a ``resnet_int8.device_tree``; images:
     normalised float NHWC -> logits float32. ``act_scales``: the [n_convs]
-    vector of the v1 walk (required), on the images' device."""
+    vector of the v1 walk (required), on the images' device. ``trace``, a
+    list, receives (name, tensor) of every layer's input codes, int32
+    accumulators and bfloat16 affine output in order (for comparing two
+    devices layer by layer)."""
     if act_scales is None:
         raise ValueError("the streaming walk needs static activation scales")
     i = 0
     s_stem = act_scales[i]
     i += 1
-    x_q = quantize_codes(images.to(BF16), s_stem)
-    y = torch.relu(_conv_affine(x_q, s_stem, q["stem"], stride=2, padding=[(3, 3), (3, 3)]))
-    x_q = nn_max_pool(quantize_codes(y, act_scales[i]))
+    x_q = _codes(images.to(BF16), s_stem, trace, "stem")
+    y = torch.relu(_conv_affine(x_q, s_stem, q["stem"], stride=2, padding=[(3, 3), (3, 3)],
+                                trace=trace, name="stem"))
+    x_q = nn_max_pool(_codes(y, act_scales[i], trace, "stage1_block1.conv1"))
 
     n_total = sum(stage_sizes)
     done = 0
@@ -60,16 +77,29 @@ def apply(q: Dict, images: torch.Tensor, act_scales: torch.Tensor,
             done += 1
             last = done == n_total
 
-            y = torch.relu(_conv_affine(x_q, s1, block["conv1"]))
-            y = torch.relu(_conv_affine(quantize_codes(y, s2), s2, block["conv2"], stride=stride))
-            y = _conv_affine(quantize_codes(y, s3), s3, block["conv3"])
+            name = f"stage{si + 1}_block{j + 1}"
+            kw = {"trace": trace}
+            y = torch.relu(_conv_affine(x_q, s1, block["conv1"], name=f"{name}.conv1", **kw))
+            y = torch.relu(_conv_affine(_codes(y, s2, trace, f"{name}.conv2"), s2,
+                                        block["conv2"], stride=stride, name=f"{name}.conv2",
+                                        **kw))
+            y = _conv_affine(_codes(y, s3, trace, f"{name}.conv3"), s3, block["conv3"],
+                             name=f"{name}.conv3", **kw)
             if has_down:
-                residual = _conv_affine(x_q, s1, block["down"], stride=stride)
+                residual = _conv_affine(x_q, s1, block["down"], stride=stride,
+                                        name=f"{name}.downsample", **kw)
             else:
                 residual = x_q.to(BF16) * s1.to(BF16)
             y = torch.relu(y + residual)
+            if trace is not None:
+                trace.append((f"{name}.out", y))
             if last:
                 x_bf = y
             else:
-                x_q = quantize_codes(y, act_scales[i])
-    return head(torch.mean(x_bf.to(torch.float32), dim=(1, 2)), q)
+                nxt = f"stage{si + 1 + (j + 1 == n_blocks)}_block{1 if j + 1 == n_blocks else j + 2}"
+                x_q = _codes(y, act_scales[i], trace, f"{nxt}.conv1")
+    features = torch.mean(x_bf.to(torch.float32), dim=(1, 2))
+    logits = head(features, q)
+    if trace is not None:
+        trace += [("features", features), ("logits", logits)]
+    return logits

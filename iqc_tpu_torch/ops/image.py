@@ -199,11 +199,34 @@ def otsu_threshold(x: torch.Tensor, nbins: int = 256) -> torch.Tensor:
     return torch.gather(centers, 1, idx).reshape(lead)
 
 
-def adaptive_local_mean(x: torch.Tensor, block_size: int) -> torch.Tensor:
-    """Gaussian local mean behind cv2's adaptive threshold (its sigma rule)."""
+def box_blur(image: torch.Tensor, radius: int) -> torch.Tensor:
+    """Mean of each pixel's (2 * radius + 1)^2 window of [..., H, W], over
+    the window's pixels inside the image (zero padding, divided by the
+    count of pixels inside)."""
+    lead = image.shape[:-2]
+    h, w = image.shape[-2:]
+    x = image.reshape(-1, 1, h, w).to(torch.float32)
+    y = F.avg_pool2d(x, 2 * radius + 1, stride=1, padding=radius, count_include_pad=False)
+    return y.reshape(*lead, h, w)
+
+
+def adaptive_local_mean(x: torch.Tensor, block_size: int, method: str = "gaussian"
+                        ) -> torch.Tensor:
+    """The local mean behind cv2's adaptive threshold: a gaussian blur (its
+    sigma rule) or, with ``method="mean"``, a box blur."""
     radius = max(1, block_size // 2)
-    sigma = 0.3 * ((block_size - 1) * 0.5 - 1) + 0.8
-    return gaussian_blur(x, sigma=sigma, radius=radius)
+    if method == "gaussian":
+        sigma = 0.3 * ((block_size - 1) * 0.5 - 1) + 0.8
+        return gaussian_blur(x, sigma=sigma, radius=radius)
+    return box_blur(x, radius)
+
+
+def adaptive_threshold(x: torch.Tensor, block_size: int, c: float, invert: bool,
+                       method: str = "gaussian") -> torch.Tensor:
+    """cv2.adaptiveThreshold on a float [0,1] image [..., H, W]: x above its
+    local mean less c/255 (below it with ``invert``, THRESH_BINARY_INV)."""
+    thresh = adaptive_local_mean(x, block_size, method) - c / 255.0
+    return (x < thresh) if invert else (x > thresh)
 
 
 def _conv3x3(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:

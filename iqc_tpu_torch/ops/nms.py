@@ -3,7 +3,9 @@
 Batched over images: one suppression kernel launch covers the whole batch.
 Capacity K = min(max_detections, anchors) candidates per image are taken by
 score (ties keep the lower anchor index first), suppressed by
-``nms_kernel.suppress`` for a fixed number of rounds, optionally merged by
+``nms_kernel.suppress`` for a fixed number of rounds (or, with
+``iterations=None``, by the exact sequential greedy recurrence in plain
+PyTorch, ``suppress_exact``), optionally merged by
 score x IoU weighted box voting, compacted to the front in score order and
 padded back to ``max_detections`` slots.
 
@@ -15,7 +17,7 @@ hold at each replay.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -65,6 +67,19 @@ def decode_boxes(dist_logits: torch.Tensor, anchor_points: torch.Tensor,
                         ax + ltrb[..., 2], ay + ltrb[..., 3]], dim=-1)
 
 
+def suppress_exact(boxes: torch.Tensor, iou_threshold) -> torch.Tensor:
+    """Greedy-NMS keep mask [B,K] of score-sorted boxes [B,K,4], exact:
+    candidate i, in order, suppresses every later j with IoU > threshold
+    while it is itself kept (K sequential steps)."""
+    overlap = iou_matrix(boxes, boxes) > iou_threshold
+    k = boxes.shape[-2]
+    later = torch.arange(k, device=boxes.device)
+    keep = torch.ones(boxes.shape[:-1], dtype=torch.bool, device=boxes.device)
+    for i in range(k):
+        keep = keep & ~(overlap[:, i] & (later > i) & keep[:, i:i + 1])
+    return keep
+
+
 def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x [B,N,...] indexed along dim 1 by idx [B,M]."""
     return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
@@ -75,7 +90,7 @@ Threshold = Union[float, torch.Tensor]
 
 def _nms(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
          passed: torch.Tensor, max_detections: int, iou_threshold: Threshold,
-         class_aware: bool, iterations: int, box_voting: bool) -> Detections:
+         class_aware: bool, iterations: Optional[int], box_voting: bool) -> Detections:
     """NMS over a batch: boxes [B,A,4], scores [B,A], classes [B,A] int32,
     passed [B,A] bool (candidates that cleared the score floor)."""
     s = torch.where(passed, scores, torch.full_like(scores, -1.0))
@@ -90,7 +105,8 @@ def _nms(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
         iou_boxes = top_boxes + top_classes.to(torch.float32)[..., None] * 1e5
     else:
         iou_boxes = top_boxes
-    keep = suppress(iou_boxes, iou_threshold, iterations)
+    keep = (suppress_exact(iou_boxes, iou_threshold) if iterations is None
+            else suppress(iou_boxes, iou_threshold, iterations))
     valid = cand_valid & keep
 
     if box_voting:
@@ -125,10 +141,11 @@ def _nms(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
 
 def nms_single(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
                mask: torch.Tensor, max_detections: int, iou_threshold: Threshold,
-               score_threshold: Threshold, class_aware: bool = True, iterations: int = 16,
-               box_voting: bool = False) -> Detections:
+               score_threshold: Threshold, class_aware: bool = True,
+               iterations: Optional[int] = 16, box_voting: bool = False) -> Detections:
     """NMS of one image: boxes [A,4], scores [A], classes [A], mask [A] bool
-    (pre-filter). Returns Detections of [K] slots, score-descending."""
+    (pre-filter). Returns Detections of [K] slots, score-descending.
+    ``iterations=None``: the exact sequential suppression."""
     passed = mask & (scores > score_threshold)
     det = _nms(boxes[None].to(torch.float32), scores[None].to(torch.float32),
                classes[None].to(torch.int32), passed[None], max_detections,
@@ -138,7 +155,7 @@ def nms_single(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
 
 def batched_nms(boxes: torch.Tensor, scores_all: torch.Tensor, max_detections: int,
                 iou_threshold: Threshold, score_threshold: Threshold,
-                class_aware: bool = True, iterations: int = 16,
+                class_aware: bool = True, iterations: Optional[int] = 16,
                 box_voting: bool = False) -> Detections:
     """Class-aware NMS of boxes [B,A,4] with per-class scores [B,A,C].
 
@@ -157,7 +174,7 @@ def decode_and_nms(dist_logits: torch.Tensor, cls_logits: torch.Tensor,
                    anchor_points: torch.Tensor, strides: torch.Tensor, reg_max: int,
                    max_detections: int, iou_threshold: Threshold,
                    score_threshold: Threshold,
-                   iterations: int = 16, box_voting: bool = False) -> Detections:
+                   iterations: Optional[int] = 16, box_voting: bool = False) -> Detections:
     """DFL decode -> sigmoid scores -> class-aware NMS.
     dist_logits [B,A,4*reg_max]; cls_logits [B,A,C]."""
     boxes = decode_boxes(dist_logits, anchor_points, strides, reg_max)

@@ -64,6 +64,19 @@ def _bcast(v: torch.Tensor) -> torch.Tensor:
     return v[:, None, None]
 
 
+def clean_mask_batch(mask: torch.Tensor) -> torch.Tensor:
+    """Cleanup of [N,R,R] bool masks: open(1), hole fill, close(2), open(2)
+    (K3 on the card)."""
+    return clean(mask, FILL_ITERATIONS)
+
+
+def grow_clean_batch(seeds: torch.Tensor, allow: torch.Tensor,
+                     iterations: int = GROW_ITERATIONS) -> torch.Tensor:
+    """Geodesic growth of [N,R,R] seeds inside ``allow`` for ``iterations``
+    steps, then the cleanup (K2 on the card)."""
+    return grow_clean(seeds, allow, iterations, FILL_ITERATIONS)
+
+
 def morph_tails_batch(m_t_raw: torch.Tensor, seeds: torch.Tensor, allow: torch.Tensor,
                       iterations: int = GROW_ITERATIONS
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -7,8 +7,10 @@ Flax-shaped nested dicts (``weights.to_flax`` of a module).
 
 ``save_train_state`` writes the training state in the layout of the JAX
 package's train-state checkpoint of the same optimizer, (step, params,
-batch_stats, optax state) with the optax chain's trace, count and mask in
-their places; ``load_train_state`` restores it into a trainer's state.
+batch_stats, optax state) with the optax chain's leaves in their places
+(the YOLO chain's trace, count and mask; the classifier chain's Adam
+moments or Nesterov trace, counts, injected learning rate and mask);
+``load_train_state`` restores it into a trainer's state.
 """
 
 from __future__ import annotations
@@ -78,18 +80,46 @@ def load_metadata(path: str) -> Dict:
         return {}
 
 
+def _classifier_opt_tree(module: torch.nn.Module, opt) -> Dict[str, Any]:
+    """optax's state of the classifier's chain (``steps.ClassifierOptState``):
+    add_decayed_weights -> adam, adamw, or sgd with Nesterov momentum, each
+    with a schedule's count where it has one, under inject_hyperparams for
+    the plateau schedule."""
+    tree = lambda values: weights.to_flax(module, values)["params"]
+    count = np.asarray(opt.count, np.int32)
+    sched = {"count": count} if opt.scheduled and opt.learning_rate is None else {}
+    if opt.kind == "sgd":
+        inner = {"0": {"trace": tree(opt.trace)}, "1": sched}
+    else:
+        adam = {"count": count, "mu": tree(opt.mu), "nu": tree(opt.nu)}
+        inner = ({"0": {}, "1": {"0": adam, "1": sched}} if opt.kind == "adam"
+                 else {"0": adam, "1": {}, "2": sched})
+    if opt.learning_rate is not None:
+        inner = {"count": count,
+                 "hyperparams": {"learning_rate": np.asarray(opt.learning_rate, np.float32)},
+                 "hyperparams_states": {}, "inner_state": inner}
+    return inner
+
+
 def _train_state_tree(module: torch.nn.Module, state) -> Dict[str, Any]:
     """(step, params, batch_stats, optax state) as the JAX package's
-    ``save_train_state`` lays it out for add_decayed_weights -> sgd with
-    momentum (-> the mask stage)."""
+    ``save_train_state`` lays it out: for ``steps.SGDState``
+    add_decayed_weights -> sgd with momentum, for
+    ``steps.ClassifierOptState`` the classifier's chain (-> the mask
+    stage)."""
+    from iqc_tpu_torch.train.steps import ClassifierOptState
+
     flax = weights.to_flax(module)
     opt = state.opt_state
-    sgd = {"0": {}, "1": {"0": {"trace": weights.to_flax(module, opt.trace)["params"]},
-                          "1": {"count": np.asarray(opt.count, np.int32)}}}
+    if isinstance(opt, ClassifierOptState):
+        chain = _classifier_opt_tree(module, opt)
+    else:
+        chain = {"0": {}, "1": {"0": {"trace": weights.to_flax(module, opt.trace)["params"]},
+                                "1": {"count": np.asarray(opt.count, np.int32)}}}
     if opt.mask is not None:
-        sgd = {"0": sgd, "1": {"mask": weights.to_flax(module, opt.mask)["params"]}}
+        chain = {"0": chain, "1": {"mask": weights.to_flax(module, opt.mask)["params"]}}
     return {"0": np.asarray(state.step, np.int32), "1": flax["params"],
-            "2": flax["batch_stats"], "3": sgd}
+            "2": flax["batch_stats"], "3": chain}
 
 
 def save_train_state(path: str, module: torch.nn.Module, state,
@@ -102,19 +132,25 @@ def save_train_state(path: str, module: torch.nn.Module, state,
 def load_train_state(path: str, module: torch.nn.Module, state):
     """Restore a file of ``save_train_state`` (of either package, for the
     same model and optimizer) into ``module`` and ``state``; returns the
-    state with its step, trace, count and mask from the file."""
+    state with its step and optimizer state (trace or moments, count,
+    mask, injected rate) from the file."""
     import dataclasses
 
     raw = load_variables(path, _train_state_tree(module, state))
     loaded = weights.train_state_from_flax(raw)
+    opt = state.opt_state
     with torch.no_grad():
         for name, t in {**state.params, **state.batch_stats}.items():
             t.copy_(loaded["params"].get(name, loaded["batch_stats"].get(name)))
-        for name, t in state.opt_state.trace.items():
-            t.copy_(loaded["trace"][name])
-    opt = dataclasses.replace(state.opt_state, count=loaded["count"],
-                              mask=loaded["mask"] if state.opt_state.mask is not None else None)
-    return dataclasses.replace(state, step=loaded["step"], opt_state=opt)
+        for leaf in ("trace", "mu", "nu"):
+            for name, t in (getattr(opt, leaf, None) or {}).items():
+                t.copy_(loaded[leaf][name])
+    changes = {"count": loaded["count"],
+               "mask": loaded["mask"] if opt.mask is not None else None}
+    if getattr(opt, "learning_rate", None) is not None:
+        changes["learning_rate"] = loaded["learning_rate"]
+    return dataclasses.replace(state, step=loaded["step"],
+                               opt_state=dataclasses.replace(opt, **changes))
 
 
 class CheckpointManager:

@@ -1,6 +1,7 @@
-"""The training step's pieces: learning-rate schedule, optimizer, EMA.
+"""The training step's pieces: learning-rate schedules, optimizers, EMA, and
+the classifier's loss and steps.
 
-The JAX package trains with the optax chain ``add_decayed_weights(wd)`` ->
+The JAX package trains YOLO with the optax chain ``add_decayed_weights(wd)`` ->
 ``sgd(schedule, momentum, nesterov=True)`` -> (with frozen modules) a
 per-leaf mask on the final update. ``SGDState`` holds what optax's state
 holds, leaf for leaf: the momentum trace of every parameter, the schedule's
@@ -15,8 +16,24 @@ update count and the mask. ``sgd_update`` applies the chain in place:
 - the mask scales that final update; a frozen parameter's trace keeps
   accumulating and the parameter stays bitwise unchanged.
 
-The schedule and the EMA decay are scalars of the step number, computed on
-the host in float32 with the rounding that XLA gives the JAX package's
+The classifier trains with one of three optax chains (``Optimizer``), each
+with ``ClassifierOptState`` holding optax's state leaf for leaf:
+
+- ``adam``: ``add_decayed_weights(wd)`` -> ``adam(lr)``: ``u = g + wd * p``,
+  ``mu = (1 - b1) * u + b1 * mu``, ``nu = (1 - b2) * u^2 + b2 * nu``, then
+  ``mu / (1 - b1^n) / (sqrt(nu / (1 - b2^n)) + eps)`` with the count n
+  incremented before the bias corrections (the first update uses 1);
+- ``adamw``: the same Adam update of ``g``, then ``+ wd * p``;
+- ``sgd``: the Nesterov trace at momentum 0.9, no weight decay;
+
+each scaled by ``-lr`` and, where parameters are frozen, by the per-leaf
+mask. The learning rate comes from a schedule of the update count (cosine,
+a staircase exponential, a constant) or, for the plateau schedule, from a
+float32 leaf of the state that ``set_learning_rate`` lowers between epochs
+(optax's ``inject_hyperparams``).
+
+The schedules and the EMA decay are scalars of the step number, computed
+on the host in float32 with the rounding that XLA gives the JAX package's
 expressions (it folds constants, turns a division by a constant into a
 multiplication by its reciprocal and contracts the last multiply-add); the
 transcendental functions are taken in float64 and rounded.
@@ -26,10 +43,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 f32 = np.float32
 
@@ -82,9 +100,10 @@ def sgd_init(params: Dict[str, torch.Tensor], masked: bool = False) -> SGDState:
                     mask={k: 1.0 for k in params} if masked else None)
 
 
-def set_update_mask(state: SGDState, mask: Dict[str, float]) -> SGDState:
-    """The state with ``mask`` (parameter name -> 0.0 or 1.0) in place of
-    its mask: frozen parameters get 0. The trace and count stay."""
+def set_update_mask(state, mask: Dict[str, float]):
+    """The state (``SGDState`` or ``ClassifierOptState``) with ``mask``
+    (parameter name -> 0.0 or 1.0) in place of its mask: frozen parameters
+    get 0. Everything else stays."""
     if state.mask is None:
         raise ValueError("this optimizer has no mask stage (build it with masked=True)")
     if set(mask) != set(state.mask):
@@ -163,3 +182,237 @@ def module_state(module: torch.nn.Module, opt_state: SGDState, step: int = 0) ->
     stats = {k: v for k, v in module.named_buffers()
              if k.endswith(("running_mean", "running_var"))}
     return TrainState(step=step, params=params, batch_stats=stats, opt_state=opt_state)
+
+
+# -- the classifier ------------------------------------------------------------
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int) -> Callable[[int], float]:
+    """``init_value * 0.5 * (1 + cos(pi * min(n, T) / T))`` in float32 (optax's
+    ``cosine_decay_schedule`` at alpha 0)."""
+    t = f32(decay_steps)
+    inv_t = f32(f32(1) / t)
+    base = f32(init_value)
+
+    def schedule(count: int) -> float:
+        c = min(f32(count), t)
+        cosv = f32(math.cos(float(f32(f32(f32(math.pi) * c) * inv_t))))
+        return float(f32(base * f32(f32(0.5) * f32(f32(1) + cosv))))
+
+    return schedule
+
+
+def exponential_decay(init_value: float, transition_steps: int, decay_rate: float,
+                      staircase: bool = True) -> Callable[[int], float]:
+    """``init_value * decay_rate ** (n / transition_steps)``, the exponent
+    floored with ``staircase``, in float32 (optax's ``exponential_decay``)."""
+    base = f32(init_value)
+    if transition_steps <= 0 or decay_rate == 0:
+        return lambda count: float(base)
+    inv = f32(f32(1) / f32(transition_steps))
+
+    def schedule(count: int) -> float:
+        if count <= 0:
+            return float(base)
+        e = f32(f32(count) * inv)
+        if staircase:
+            e = f32(math.floor(e))
+        return float(f32(base * f32(float(f32(decay_rate)) ** float(e))))
+
+    return schedule
+
+
+def constant_schedule(value: float) -> Callable[[int], float]:
+    v = float(f32(value))
+    return lambda count: v
+
+
+@dataclasses.dataclass
+class ClassifierOptState:
+    """optax's state of the classifier's chain: the optimizer's ``kind``,
+    whether the chain holds a schedule's count, the update count (Adam's,
+    the schedule's and ``inject_hyperparams``' count move together), Adam's
+    moments ``mu``/``nu`` or SGD's Nesterov ``trace`` (by state-dict name),
+    the per-parameter 0/1 mask (None without a mask stage), and the
+    injected float32 learning rate of the plateau schedule (None with a
+    schedule)."""
+
+    kind: str = "adam"
+    scheduled: bool = True   # the chain counts its schedule's steps (not a constant rate)
+    count: int = 0
+    mu: Optional[Dict[str, torch.Tensor]] = None
+    nu: Optional[Dict[str, torch.Tensor]] = None
+    trace: Optional[Dict[str, torch.Tensor]] = None
+    mask: Optional[Dict[str, float]] = None
+    learning_rate: Optional[float] = None
+
+
+OPTIMIZERS = ("adam", "adamw", "sgd")
+
+
+class Optimizer:
+    """One of the classifier's optimizers (``kind`` in ``OPTIMIZERS``) with a
+    learning-rate ``schedule`` of the update count, or ``schedule=None`` for
+    the plateau schedule's injected rate (``init(plateau_lr=...)``)."""
+
+    B1, B2, EPS, MOMENTUM = 0.9, 0.999, 1e-8, 0.9
+
+    def __init__(self, kind: str, schedule: Optional[Callable[[int], float]],
+                 weight_decay: float = 0.0, scheduled: bool = True):
+        if kind not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer {kind!r} (one of {', '.join(OPTIMIZERS)})")
+        self.kind = kind
+        self.schedule = schedule
+        self.weight_decay = weight_decay
+        # optax keeps a count for a schedule, none for a constant rate
+        self.scheduled = scheduled and schedule is not None
+
+    def init(self, params: Dict[str, torch.Tensor], masked: bool = False,
+             plateau_lr: Optional[float] = None) -> ClassifierOptState:
+        zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}
+        if (plateau_lr is None) == (self.schedule is None):
+            raise ValueError("give a schedule or a plateau learning rate, not both or neither")
+        st = ClassifierOptState(kind=self.kind, scheduled=self.scheduled,
+                                mask={k: 1.0 for k in params} if masked else None,
+                                learning_rate=None if plateau_lr is None
+                                else float(f32(plateau_lr)))
+        if self.kind == "sgd":
+            st.trace = zeros()
+        else:
+            st.mu, st.nu = zeros(), zeros()
+        return st
+
+    def learning_rate(self, state: ClassifierOptState) -> float:
+        """The rate of the next update."""
+        if state.learning_rate is not None:
+            return state.learning_rate
+        return self.schedule(state.count)
+
+    def _adam(self, u: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, count: int):
+        # the moments' (1 - b) is folded in float64, the bias corrections'
+        # 1 - b^n taken in float32
+        b1, b2 = f32(self.B1), f32(self.B2)
+        mu = _fma(f32(1 - self.B1), u, mu * float(b1))
+        nu = _fma(f32(1 - self.B2), u * u, nu * float(b2))
+        bc1 = float(f32(f32(1) - f32(float(b1) ** count)))
+        bc2 = float(f32(f32(1) - f32(float(b2) ** count)))
+        upd = (mu / bc1) / (torch.sqrt(nu / bc2) + float(f32(self.EPS)))
+        return upd, mu, nu
+
+    @torch.no_grad()
+    def update(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
+               state: ClassifierOptState) -> ClassifierOptState:
+        """One update, in place on ``params`` and the state's moments or
+        trace (over all parameters at once, flattened); returns the state
+        with its count advanced."""
+        names = list(params)
+        p_list = [params[k] for k in names]
+        p = _flat(p_list)
+        g = _flat([grads[k] for k in names])
+        wd = f32(self.weight_decay)
+        lr = f32(-self.learning_rate(state))
+        count = state.count + 1
+        if self.kind == "sgd":
+            t_list = [state.trace[k] for k in names]
+            t = _fma(f32(self.MOMENTUM), _flat(t_list), g)          # g + m * t
+            upd = _fma(f32(self.MOMENTUM), t, g)                    # g + m * t'
+            _scatter(t, t_list)
+        else:
+            mu_list = [state.mu[k] for k in names]
+            nu_list = [state.nu[k] for k in names]
+            u = _fma(wd, p, g) if self.kind == "adam" else g        # g + wd * p
+            upd, mu, nu = self._adam(u, _flat(mu_list), _flat(nu_list), count)
+            if self.kind == "adamw":
+                upd = _fma(wd, p, upd)                              # + wd * p
+            _scatter(mu, mu_list)
+            _scatter(nu, nu_list)
+        if state.mask is None:
+            p = _fma(upd, lr, p)
+        else:
+            mask = torch.cat([torch.full((x.numel(),), state.mask[k], dtype=torch.float32,
+                                         device=x.device) for k, x in zip(names, p_list)])
+            if state.scheduled or state.learning_rate is not None:
+                p = _fma(upd * float(lr), mask, p)
+            else:  # XLA folds a constant rate into the mask: one rounding
+                p = _fma(upd, mask * float(lr), p)
+        _scatter(p, p_list)
+        return dataclasses.replace(state, count=count)
+
+
+def set_learning_rate(state: ClassifierOptState, lr: float) -> ClassifierOptState:
+    """The plateau schedule's state with its injected rate set to ``lr``
+    (rounded to float32)."""
+    if state.learning_rate is None:
+        raise ValueError("this optimizer runs a schedule; only the plateau schedule's rate is set")
+    return dataclasses.replace(state, learning_rate=float(f32(lr)))
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          label_smoothing: float = 0.0,
+                          class_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean over the batch of the cross-entropy against one-hot labels,
+    smoothed to ``onehot * (1 - s) + s / C``, each sample's loss scaled by
+    its class's weight (the plain mean, not a weighted one)."""
+    num_classes = logits.shape[-1]
+    onehot = F.one_hot(labels.long(), num_classes).to(torch.float32)
+    if label_smoothing > 0:
+        onehot = onehot * f32(1 - label_smoothing) + f32(label_smoothing / num_classes)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    loss = -torch.sum(onehot * logp, dim=-1)
+    if class_weights is not None:
+        loss = loss * class_weights[labels.long()]
+    return torch.mean(loss)
+
+
+def device_normalize(images: torch.Tensor) -> torch.Tensor:
+    """uint8 batches -> ImageNet-normalised float32 on their device, as
+    ``(x * (1/255) - mean) / std``; float batches pass through (taken as
+    normalised already)."""
+    if images.dtype.is_floating_point:
+        return images
+    from iqc_tpu_torch.ops.image import IMAGENET_MEAN, IMAGENET_STD
+    from iqc_tpu_torch.ops.jit_utils import device_constant
+
+    x = images.to(torch.float32) * float(f32(f32(1) / f32(255)))
+    mean = device_constant(np.float32(IMAGENET_MEAN), images.device)
+    std = device_constant(np.float32(IMAGENET_STD), images.device)
+    return (x - mean) / std
+
+
+def make_classifier_train_step(module: torch.nn.Module, optimizer: Optimizer,
+                               label_smoothing: float = 0.0):
+    """step(state, images, labels, class_weights, dropout_masks=None) ->
+    {"loss", "accuracy"} (0-d tensors): one update of ``state`` (a
+    ``TrainState`` over ``module``, in place) from a batch on the device.
+    Integer images are normalised there (``device_normalize``);
+    ``dropout_masks`` are the head's keep masks (None: the module draws)."""
+
+    def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
+             class_weights: torch.Tensor, dropout_masks=None) -> Dict[str, torch.Tensor]:
+        module.train()
+        names = list(state.params)
+        logits = module(device_normalize(images), dropout_masks=dropout_masks)
+        loss = softmax_cross_entropy(logits, labels, label_smoothing, class_weights)
+        grads = torch.autograd.grad(loss, [state.params[k] for k in names])
+        state.opt_state = optimizer.update(state.params, dict(zip(names, grads)),
+                                           state.opt_state)
+        state.step += 1
+        acc = torch.mean((torch.argmax(logits.detach(), -1) == labels).to(torch.float32))
+        return {"loss": loss.detach(), "accuracy": acc}
+
+    return step
+
+
+def make_classifier_eval_step(module: torch.nn.Module):
+    """step(images, labels) -> {"loss" (unweighted, unsmoothed), "preds",
+    "labels", "probs"} of ``module`` in evaluation mode."""
+
+    @torch.no_grad()
+    def step(images: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+        module.eval()
+        logits = module(device_normalize(images))
+        return {"loss": softmax_cross_entropy(logits, labels),
+                "preds": torch.argmax(logits, -1), "labels": labels,
+                "probs": torch.softmax(logits.to(torch.float32), dim=-1)}
+
+    return step

@@ -380,8 +380,12 @@ def flax_named(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return from_flax({"params": tree})
 
 
+_OPTAX_LEAVES = ("trace", "mu", "nu", "count", "mask", "learning_rate")
+
+
 def _optax_leaves(opt_state) -> Dict[str, Any]:
-    """The trace, count and mask of an optax chain's state, as optax state
+    """The momentum trace, Adam's moments, the count, the mask and the
+    injected learning rate of an optax chain's state, as optax state
     objects (NamedTuples in nested tuples) or as their state-dict form
     (nested dicts keyed by field name or position)."""
     found: Dict[str, Any] = {}
@@ -396,7 +400,7 @@ def _optax_leaves(opt_state) -> Dict[str, Any]:
         else:
             return
         for k, v in items:
-            if k in ("trace", "count", "mask"):
+            if k in _OPTAX_LEAVES:
                 found[k] = v
             else:
                 walk(v)
@@ -410,23 +414,28 @@ def train_state_from_flax(state, ema_params=None) -> Dict[str, Any]:
     ``TrainState`` (step, params, batch_stats, opt_state), or that tuple as
     numpy (``jax.device_get``) or in the state-dict form a train-state
     checkpoint holds; ``ema_params`` its EMA tree. Returns {"step": int,
-    "params", "batch_stats", "trace", "ema": tensors by state-dict name,
-    "count": int, "mask": {name: float} or None}."""
+    "params", "batch_stats", "trace", "mu", "nu", "ema": tensors by
+    state-dict name (None where the state has none), "count": int (0 where
+    the chain counts nothing), "mask": {name: float} or None,
+    "learning_rate": the injected float rate or None}."""
     if isinstance(state, dict):
         state = tuple(state[str(i)] for i in range(4))
     step, params, batch_stats, opt_state = state
     opt = _optax_leaves(opt_state)
-    if "trace" not in opt or "count" not in opt:
-        raise ValueError("the optimizer state holds no momentum trace and count "
-                         "(expected add_decayed_weights -> sgd with momentum)")
+    if "trace" not in opt and "mu" not in opt:
+        raise ValueError("the optimizer state holds neither a momentum trace nor Adam's "
+                         "moments (expected sgd with momentum, adam or adamw)")
+    named = lambda k: flax_named(opt[k]) if k in opt else None
     out = {"step": int(np.asarray(step)),
            "params": flax_named(params),
            "batch_stats": from_flax({"batch_stats": batch_stats}),
-           "trace": flax_named(opt["trace"]),
-           "count": int(np.asarray(opt["count"])),
-           "mask": None, "ema": None}
+           "trace": named("trace"), "mu": named("mu"), "nu": named("nu"),
+           "count": int(np.asarray(opt.get("count", 0))),
+           "mask": None, "ema": None, "learning_rate": None}
     if "mask" in opt:
         out["mask"] = {k: float(v) for k, v in flax_named(opt["mask"]).items()}
+    if "learning_rate" in opt:
+        out["learning_rate"] = float(np.asarray(opt["learning_rate"], np.float32))
     if ema_params is not None:
         out["ema"] = flax_named(ema_params)
     return out

@@ -674,3 +674,93 @@ def test_trainer_validate_on_the_card_equals_the_cpu(cuda):
         np.testing.assert_array_equal(g["classes"][og], c["classes"][oc])
         np.testing.assert_allclose(g["boxes"][og], c["boxes"][oc], rtol=0, atol=1e-3)
         np.testing.assert_allclose(g["scores"][og], c["scores"][oc], rtol=0, atol=1e-5)
+
+
+# -- the classifier trainer ------------------------------------------------------------
+
+CLS_CFG = {"image_size": 32, "batch_size": 8, "stage_sizes": [1, 1, 1, 1], "epochs": 3,
+           "compute_dtype": "float32"}
+
+
+def _classifier_pair(cuda, n_steps, tmp_path):
+    """The same fresh classifier trained ``n_steps`` float32 steps on the
+    card and on the CPU (the profile's augmentation, class weights and
+    balanced sampling; the same CPU-drawn augmentation and dropout)."""
+    from iqc_tpu_torch.config import RESNET_TRAINING_PROFILE
+    from iqc_tpu_torch.data.mvtec_synth import MVTecStyleRenderer
+    from iqc_tpu_torch.data.pipeline import ArrayDataset
+    from iqc_tpu_torch.train.train_resnet import ResNetTrainer
+
+    r = MVTecStyleRenderer(size=32, seed=5)
+    names = ("crack", "scratch", "dent", "discoloration", "contamination")
+    labels = np.repeat(np.arange(5), (8, 6, 4, 3, 3)).astype(np.int32)
+    images = np.stack([r.render(names[c], i)[0] for i, c in enumerate(labels)])
+    cfg = {**CLS_CFG, "augmentation": RESNET_TRAINING_PROFILE["augmentation"]["train"],
+           "checkpoint_dir": str(tmp_path)}
+    out = []
+    for device in (cuda, "cpu"):
+        tr = ResNetTrainer(cfg, device=device)
+        tr.setup_data(ArrayDataset(images, labels), ArrayDataset(images[::-1], labels[::-1]))
+        tr.build(steps_per_epoch=3)
+        corpus = tr._maybe_device_corpus()
+        out.append((tr, tr._corpus_epoch(corpus, tr.epoch_indices(0)[:n_steps])))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cpu_stats", ["torch_order", "xla_order"])
+def test_classifier_steps_on_the_card_equal_the_cpu(cuda, cpu_stats, monkeypatch, tmp_path):
+    """Two float32 classifier steps (Adam + cosine, the profile's
+    augmentation) on the card and on the CPU: the first loss within 1e-4
+    relative where the CPU sums the batch statistics with PyTorch's
+    reduction (1e-3 in XLA's order), the second within 2e-3 (Adam moves a
+    parameter whose gradient is near zero by about the learning rate, so
+    rounding differences of the first backward reach it); the parameters
+    within 5e-3 (five learning rates)."""
+    from iqc_tpu_torch.models import layers
+
+    if cpu_stats == "torch_order":
+        monkeypatch.setattr(layers, "channel_mean", _torch_order_mean)
+    (gpu, pg), (cpu, pc) = _classifier_pair(cuda, 2, tmp_path)
+    tols = (1e-4 if cpu_stats == "torch_order" else 1e-3, 2e-3)
+    for g, c, tol in zip(pg, pc, tols):
+        np.testing.assert_allclose(float(g["loss"]), float(c["loss"]), rtol=tol)
+    err = max(float((gpu.state.params[k].detach().cpu() - v.detach()).abs().max())
+              for k, v in cpu.state.params.items())
+    assert err <= 5e-3, err
+
+
+@pytest.mark.cuda
+def test_classifier_evaluate_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """evaluate and test of the same weights on the card and on the CPU:
+    predictions and the confusion matrix equal, the loss within 1e-5."""
+    (gpu, _), (cpu, _) = _classifier_pair(cuda, 1, tmp_path)
+    with torch.no_grad():
+        for k, v in cpu.module.state_dict().items():
+            gpu.module.state_dict()[k].copy_(v)
+    a, b = gpu.evaluate(gpu.val_loader), cpu.evaluate(cpu.val_loader)
+    assert abs(a.pop("loss") - b.pop("loss")) <= 1e-5
+    assert a == b
+    gpu.test_ds, cpu.test_ds = gpu.val_ds, cpu.val_ds
+    ta, tb = gpu.test(str(tmp_path)), cpu.test(str(tmp_path))
+    assert ta["confusion_matrix"] == tb["confusion_matrix"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r", [(16, 128), (40, 64)])
+def test_clean_and_grow_clean_batch_on_the_card(cuda, n, r):
+    """segmentation.clean_mask_batch and grow_clean_batch launch K3 and K2
+    once each on the card and EQUAL their plain versions on the CPU."""
+    from iqc_tpu_torch.ops import segmentation
+
+    gen = torch.Generator().manual_seed(n)
+    masks = torch.rand((n, r, r), generator=gen) < 0.45
+    seeds = torch.rand((n, r, r), generator=gen) < 0.03
+    allow = torch.rand((n, r, r), generator=gen) < 0.7
+    before = dict(morph_kernel.LAUNCHES)
+    got_c = segmentation.clean_mask_batch(masks.to(cuda)).cpu()
+    got_g = segmentation.grow_clean_batch(seeds.to(cuda), allow.to(cuda)).cpu()
+    assert morph_kernel.LAUNCHES["clean"] == before["clean"] + 1
+    assert morph_kernel.LAUNCHES["grow_clean"] == before["grow_clean"] + 1
+    assert torch.equal(got_c, morph_kernel.clean_plain(masks, 16))
+    assert torch.equal(got_g, morph_kernel.grow_clean_plain(seeds, allow, 24, 16))

@@ -248,6 +248,8 @@ def test_bad_requests(apps):
          "application/json"),
         ("PUT", "/api/config", b"", "application/json"),
         ("PUT", "/api/config", b'{"model": {"confidence_threshold": 7}}', "application/json"),
+        ("PUT", "/api/config", b'{"qc_specific": {"class_weights": {"crack": -1.0}}}',
+         "application/json"),
         ("POST", "/api/spc/analyze", b"{}", "application/json"),
         ("POST", "/api/quality/assess", b"{}", "application/json"),
         ("GET", "/api/nonexistent", b"", ""),
@@ -256,7 +258,7 @@ def test_bad_requests(apps):
     ):
         status, _, _ = _same(apps, method, path, payload, ctype)
         answers.append(status)
-    assert answers == [400] * 13 + [404, 405, 405]
+    assert answers == [400] * 14 + [404, 405, 405]
 
 
 def test_config_and_thresholds(apps, systems):
@@ -264,6 +266,7 @@ def test_config_and_thresholds(apps, systems):
     (ws, wd), (gs, gd) = (wsgi_call(a, "GET", "/api/config") for a in apps)
     assert gs == ws == 200
     _port_keys_equal(gd["config"], wd["config"])
+    _port_keys_equal(wd["config"], gd["config"])  # and every key of the reference in the port
     frame = multipart([("image", "a.jpg", encoded(8))])
     try:
         patch = json.dumps({"model": {"confidence_threshold": 0.3},
