@@ -87,6 +87,25 @@ Phases, each under a deadline and printed with its wall time:
      step (kernels, device ms, idle share), peak memory, evaluate ms per
      batch of 32; two float32 steps at batch 4 card against CPU from the
      same state and draws; K1-K3's launch counters around the phase (none).
+ 13. multi-device: `python -m torch.distributed.run --standalone
+     --nproc-per-node N chip_smoke.py --multi-device-rank DIR` with N =
+     min(cards, 4), under a deadline (its process group killed whole past
+     it; each rank's NCCL group times out a hung collective). Each rank first runs the
+     unsharded references on its card (no group yet: a mesh of 1), then joins
+     the NCCL group and holds the sharded path against them: shard_batch,
+     replicate, cross_replica_mean and the row gather exactly; a train-mode
+     BatchNorm on flat and textured halves (global statistics and their
+     gradient) and the YOLO loss's normaliser; two sharded YOLOv8n steps at
+     640^2 (global batch 8, fp32, the shipped checkpoint, the profile's
+     augmentation draws cut per rank) and one ResNet-50 step at 224^2 against
+     the plain ones; sharded validation through K1; run_sharded and
+     run_full_sharded of 8 frames at the shipped int8/bf16 profile against
+     run and run_full_host (decisions equal, boxes within 1 px, scores 1e-3,
+     masks on 99.9% of pixels); K1-K3's launch counters around the sharded
+     work; the ranks' states bitwise equal; the sharded bf16 step's ms and
+     images/s at global batch 16 against one card. Then K1-K3 at the
+     per-rank shapes against their plain versions. `--only-multi-device`
+     runs phases 1, 2 and 13 alone (a host with several cards).
 Then one JSON line of kernel measurements, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits nonzero without that line.
 Needs one CUDA device; exits nonzero at once without one.
@@ -1800,20 +1819,20 @@ def phase_training(torch):
     # statistics are summed in XLA's sequential order (the JAX package's);
     # their fast variance cancels on these flat images, so the card's tree
     # reduction moves the loss by ~3e-4. The float32 steps are also held
-    # against the CPU with PyTorch's own reduction (``layers.channel_mean``
+    # against the CPU with PyTorch's own reduction (``layers.channel_sum``
     # replaced for that run), which the card's should match within 1e-4.
     from iqc_tpu_torch import weights
     from iqc_tpu_torch.models import layers
 
     shipped = weights.read_checkpoint(os.path.join(REPO, YOLO_CKPT))
     small = tuple(x[:8] for x in corpus)
-    xla_order = layers.channel_mean
+    xla_order = layers.channel_sum
 
     def torch_order(x):
-        return x.mean([d for d in range(x.dim()) if d != 1])
+        return x.sum([d for d in range(x.dim()) if d != 1])
 
     def run(cfg, device, steps, stats):
-        layers.channel_mean = stats
+        layers.channel_sum = stats
         try:
             tr = YOLOTrainer(cfg, device=device)
             tr.build(steps_per_epoch=16)
@@ -1824,7 +1843,7 @@ def phase_training(torch):
             c = small if device == "cuda" else tuple(x.cpu() for x in small)
             return tr, tr._corpus_epoch(c, np.array([[0, 5], [3, 6]], np.int32)[:steps])
         finally:
-            layers.channel_mean = xla_order
+            layers.channel_sum = xla_order
 
     def compare(got, want, tol, what):
         errs = []
@@ -2024,16 +2043,16 @@ def phase_classifier_training(torch):
     # 5. card against CPU: two float32 steps at batch 4 from the same fresh
     # state and the same CPU-drawn augmentation and dropout; the CPU sums the
     # batch statistics in PyTorch's order (the card's), then in XLA's
-    xla_order = layers.channel_mean
+    xla_order = layers.channel_sum
 
     def torch_order(x):
-        return x.mean([d for d in range(x.dim()) if d != 1])
+        return x.sum([d for d in range(x.dim()) if d != 1])
 
     small = ImageFolderDataset(os.path.join(data, "val"), (224, 224))
     idx = np.array([[0, 17, 35, 52], [70, 9, 44, 61]])
 
     def run(device, stats):
-        layers.channel_mean = stats
+        layers.channel_sum = stats
         try:
             tr = ResNetTrainer({**base, "batch_size": 4, "compute_dtype": "float32"},
                                device=device)
@@ -2041,7 +2060,7 @@ def phase_classifier_training(torch):
             tr.build(steps_per_epoch=20)
             return tr, tr._corpus_epoch(tr._maybe_device_corpus(), idx)
         finally:
-            layers.channel_mean = xla_order
+            layers.channel_sum = xla_order
 
     card = run("cuda", xla_order)
     cross = {}
@@ -2070,7 +2089,418 @@ def phase_classifier_training(torch):
     return out
 
 
-def main() -> int:
+# -- phase 13: multi-device ------------------------------------------------------------
+
+def _frames(size, seeds):
+    """Seeded parts (``defect_image``) at ``size``^2, stacked."""
+    import numpy as np
+
+    return np.stack([defect_image(s, size) for s in seeds])
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _max_rel(got, want):
+    return abs(float(got) - float(want)) / max(abs(float(want)), 1e-30)
+
+
+def _yolo_rank_steps(torch, cfg, shipped, batches, sync, device):
+    """Two YOLO steps from the shipped checkpoint on the global batches (this
+    process's mesh decides the rows): the loss parts of each, the state
+    after the first, the trainer."""
+    from iqc_tpu_torch import weights
+    from iqc_tpu_torch.train.train_yolo import YOLOTrainer
+
+    tr = YOLOTrainer(cfg, device=device)
+    tr.build(steps_per_epoch=16)
+    weights.load_into(tr.module, shipped)
+    with torch.no_grad():
+        for k, p in tr.state.params.items():
+            tr.ema_params[k].copy_(p)
+    parts, first = [], None
+    for b in batches:
+        parts.append({k: float(v) for k, v in tr.train_step(*b).items()})
+        if first is None:
+            first = {name: {k: v.detach().clone() for k, v in d.items()} for name, d in
+                     (("params", tr.state.params), ("batch_stats", tr.state.batch_stats),
+                      ("ema", tr.ema_params))}
+    sync()
+    return tr, parts, first
+
+
+def _classifier_rank_step(torch, cfg, images, labels, device):
+    from iqc_tpu_torch.data.pipeline import ArrayDataset
+    from iqc_tpu_torch.train.train_resnet import ResNetTrainer
+
+    tr = ResNetTrainer(cfg, device=device)
+    tr.setup_data(ArrayDataset(images, labels))
+    tr.build(steps_per_epoch=2)
+    m = tr.train_step(images[:8], labels[:8])
+    return tr, {k: float(v) for k, v in m.items()}
+
+
+def _bn_case(torch, device, mesh, pm):
+    """A train-mode BatchNorm on the global batch (flat and textured halves)
+    or, on a mesh, on this rank's rows: outputs, statistics, gradients."""
+    import numpy as np
+
+    from iqc_tpu_torch.models.layers import BatchNorm, set_mesh
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(0.3, 1.5, (8, 16, 20, 20)).astype(np.float32)
+    x[:4] = 0.7 + rng.normal(0, 1e-3, (4, 16, 1, 1)).astype(np.float32)
+    w = torch.from_numpy(rng.normal(0, 1, (16, 20, 20)).astype(np.float32)).to(device)
+    bn = BatchNorm(16, eps=1e-3).to(device).train()
+    xt = torch.from_numpy(x)
+    if mesh is not None:
+        set_mesh(bn, mesh)
+        xt = pm.shard_batch(mesh, xt)
+    xt = xt.to(device).requires_grad_(True)
+    y = bn(xt)
+    (y * w).sum().backward()
+    dw, db = bn.weight.grad, bn.bias.grad
+    if mesh is not None:
+        dw, db = pm.all_reduce_sum(mesh, dw), pm.all_reduce_sum(mesh, db)
+    return {k: v.detach().cpu() for k, v in (("y", y), ("dx", xt.grad), ("dweight", dw),
+                                             ("dbias", db), ("mean", bn.running_mean),
+                                             ("var", bn.running_var))}
+
+
+def _loss_case(torch, device, mesh, pm):
+    """The YOLO loss of random head outputs on 8 images at 64^2 of which two
+    hold no box: the total (on a mesh, the shares summed) and num_fg."""
+    import numpy as np
+
+    from iqc_tpu_torch.models.yolo import STRIDES, feature_shapes
+    from iqc_tpu_torch.ops.nms import make_anchors
+    from iqc_tpu_torch.train.yolo_loss import yolo_loss
+
+    anchors, strides = make_anchors(feature_shapes((64, 64)), STRIDES, device=device)
+    a = anchors.shape[0]
+    rng = np.random.default_rng(1)
+    xy = rng.uniform(4, 40, (8, 3, 2)).astype(np.float32)
+    valid = np.ones((8, 3), bool)
+    valid[:2] = False
+    arrays = [rng.normal(0, 1, (8, a, 32)).astype(np.float32),
+              rng.normal(-2, 1, (8, a, 5)).astype(np.float32),
+              np.concatenate([xy, xy + rng.uniform(8, 20, (8, 3, 2)).astype(np.float32)], -1),
+              rng.integers(0, 5, (8, 3)).astype(np.int64), valid]
+    t = [torch.from_numpy(v) for v in arrays]
+    if mesh is not None:
+        t = pm.shard_batch(mesh, t)
+    t = [v.to(device) for v in t]
+    total, parts = yolo_loss(t[0], t[1], anchors, strides, t[2], t[3], t[4], 8, mesh=mesh)
+    if mesh is not None:
+        total, fg = pm.all_reduce_sum(mesh, torch.stack([total, parts["num_fg"]]))
+        return float(total), float(fg)
+    return float(total), float(parts["num_fg"])
+
+
+def _timed_steps(torch, tr, rows, global_b, steps=10, warmup=3):
+    """Wall ms of train steps on batches already on the device (median of
+    ``steps`` after ``warmup``)."""
+    ms = []
+    for i in range(warmup + steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr._step(*rows, inbatch_mosaic=False, global_b=global_b)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            ms.append((time.perf_counter() - t) * 1e3)
+    return sorted(ms)[len(ms) // 2], ms
+
+
+def _step_profile(torch, fn):
+    """One call of fn under torch.profiler: wall ms, device kernels and
+    their summed ms, the idle share, the c10d collectives called (count
+    and host ms) and the NCCL kernels (count and device ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    nccl = [e for e in kernels if "nccl" in e.name.lower()]
+    c10d = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+            and e.name.startswith("c10d::")]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return {"wall_ms": wall, "kernels": len(kernels), "device_ms": busy, "idle": 1 - busy / wall,
+            "collectives": len(c10d),
+            "collective_host_ms": sum(e.time_range.elapsed_us() for e in c10d) / 1e3,
+            "nccl_kernels": len(nccl),
+            "nccl_device_ms": sum(e.time_range.elapsed_us() for e in nccl) / 1e3}
+
+
+def multi_device_rank(out_dir):
+    """One rank of phase 13, started by torch.distributed.run: the plain
+    references first, in a process that has not joined the group (a mesh
+    of 1), then the group (NCCL on the card) and the same work sharded
+    over it; writes rank<r>.json into ``out_dir``. Exits nonzero on the
+    first check that fails."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from iqc_tpu_torch import weights
+    from iqc_tpu_torch.config import RESNET_TRAINING_PROFILE, YOLO_TRAINING_PROFILE
+    from iqc_tpu_torch.models.ensemble import EnsemblePredictor
+    from iqc_tpu_torch.parallel import mesh as pm
+    from iqc_tpu_torch.train import train_resnet, train_yolo
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    torch.cuda.set_device(device)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+    def sync():
+        torch.cuda.synchronize(device)
+
+    out = {"rank": rank, "world": world, "device": str(device)}
+    tmp = os.path.join(out_dir, f"ckpt{rank}")
+
+    # 1. the plain references (no group yet: every entry point takes its
+    # single-device path)
+    frames = _frames(640, range(8))
+    pred = EnsemblePredictor(device=device)
+    ref_run = {k: v.cpu().numpy() for k, v in pred.run(frames)._asdict().items()}
+    ref_full = pred.run_full_host(frames)
+    ycfg = {**train_yolo.config_from_profile(YOLO_TRAINING_PROFILE),
+            "batch_size": 8, "compute_dtype": "float32", "device_mosaic": False,
+            "mosaic": 0.0, "mixup": 0.0, "checkpoint_dir": tmp}
+    shipped = weights.read_checkpoint(os.path.join(REPO, YOLO_CKPT))
+    corpus = _corpus(torch, 16, ycfg["image_size"], ycfg["max_boxes"], "cpu")
+    batches = [tuple(x[i:i + 8] for x in corpus) for i in (0, 8)]
+    ref_tr, ref_parts, ref_first = _yolo_rank_steps(torch, ycfg, shipped, batches, sync, device)
+    del ref_tr
+    rcfg = {**train_resnet.config_from_profile(RESNET_TRAINING_PROFILE), "image_size": 224,
+            "batch_size": 8, "compute_dtype": "float32", "checkpoint_dir": tmp}
+    rs = rcfg["image_size"]
+    cls_images = _frames(rs, range(100, 116))
+    cls_labels = (np.arange(16) % 5).astype(np.int32)
+    ref_cls, ref_cls_m = _classifier_rank_step(torch, rcfg, cls_images, cls_labels, device)
+    ref_cls_params = {k: v.detach().clone() for k, v in ref_cls.state.params.items()}
+    ref_cls_stats = {k: v.detach().clone() for k, v in ref_cls.state.batch_stats.items()}
+    del ref_cls
+    ref_bn = _bn_case(torch, device, None, pm)
+    ref_loss = _loss_case(torch, device, None, pm)
+    timing = {}
+    bcfg = {**ycfg, "batch_size": 16, "compute_dtype": "bfloat16"}
+    tr1 = train_yolo.YOLOTrainer(bcfg, device=device)
+    tr1.build(steps_per_epoch=16)
+    rows16 = tuple(x[:16].to(device) for x in _corpus(torch, 16, 640, 64, "cpu"))
+    timing["one_card_ms"], timing["one_card_step_ms"] = _timed_steps(torch, tr1, rows16, 16)
+    timing["one_card_profile"] = _step_profile(torch, lambda: tr1._step(
+        *rows16, inbatch_mosaic=False, global_b=16))
+    del tr1
+    torch.cuda.empty_cache()
+    sync()
+
+    # 2. the group and its mesh
+    t0 = time.perf_counter()
+    dev = pm.distributed_init("cuda", timeout_s=120)
+    spec = pm.create_mesh(device=dev)
+    out["init_s"] = time.perf_counter() - t0
+    check(spec.distributed and spec.data_size == world and spec.device == device,
+          f"rank {rank}: mesh {spec}")
+    backend = torch.distributed.get_backend()
+    check(backend == "nccl", f"backend {backend}")
+    out["backend"] = backend
+    reset_launches()
+
+    # collectives, exactly
+    even = np.arange(8 * 3, dtype=np.float32).reshape(8, 3)
+    per = 8 // world
+    check(np.array_equal(pm.shard_batch(spec, even).cpu().numpy(),
+                         even[rank * per:(rank + 1) * per]), "shard_batch rows")
+    ragged = pm.shard_batch(spec, np.ones((world + 1, 2), np.float32)).cpu().numpy()
+    real = max(0, min(2, world + 1 - 2 * rank))  # rows of the 2 * world padded ones
+    check(ragged.shape[0] == 2 and ragged.sum() == 2 * real,
+          f"shard_batch padding {ragged.tolist()}")
+    rep = pm.replicate(spec, {"w": torch.full((3,), float(rank + 1), device=device)})["w"]
+    check(torch.equal(rep.cpu(), torch.ones(3)), "replicate: not rank 0's values")
+    mean = pm.cross_replica_mean(spec, torch.full((4,), float(rank), device=device))
+    check(torch.allclose(mean.cpu(), torch.full((4,), (world - 1) / 2)), "cross_replica_mean")
+    got = pm.all_gather_rows(spec, torch.tensor([[rank]], device=device)).cpu().flatten()
+    check(got.tolist() == list(range(world)), "all_gather_rows")
+
+    # global batch statistics and their gradient, and the loss's normaliser
+    bn = _bn_case(torch, device, spec, pm)
+    rows = slice(rank * per, (rank + 1) * per)
+    bn_err = {k: float((bn[k] - (ref_bn[k][rows] if k in ("y", "dx") else ref_bn[k])).abs().max())
+              for k in bn}
+    for k, tol in (("y", 1e-5), ("dx", 1e-5), ("mean", 1e-6), ("var", 1e-5), ("dweight", 1e-3),
+                   ("dbias", 1e-3)):
+        check(bn_err[k] <= tol * max(1.0, float(ref_bn[k].abs().max())),
+              f"BatchNorm {k}: {bn_err[k]} from the single-device statistics")
+    out["batchnorm_max_abs_err"] = bn_err
+    loss = _loss_case(torch, device, spec, pm)
+    check(_max_rel(loss[0], ref_loss[0]) <= 1e-5 and loss[1] == ref_loss[1],
+          f"the loss's normaliser: {loss} against {ref_loss}")
+    out["loss_normaliser"] = {"sharded": loss, "one_device": ref_loss}
+
+    # the sharded YOLO and classifier steps against the plain ones
+    tr, parts, first = _yolo_rank_steps(torch, ycfg, shipped, batches, sync, device)
+    check(tr.mesh.distributed and tr.mesh.data_size == world, "the YOLO trainer's mesh")
+    yerr = {"loss_rel": [_max_rel(p["loss"], r["loss"]) for p, r in zip(parts, ref_parts)]}
+    check(yerr["loss_rel"][0] <= 1e-4, f"sharded YOLO step 1: loss {parts[0]} vs {ref_parts[0]}")
+    check(yerr["loss_rel"][1] <= 1e-3, f"sharded YOLO step 2: loss {parts[1]} vs {ref_parts[1]}")
+    for name in ("params", "batch_stats", "ema"):
+        errs = [float(((first[name][k] - v).abs() - 2e-4 * v.abs()).max())
+                for k, v in ref_first[name].items()]
+        yerr[name] = max(errs)
+        check(yerr[name] <= 2e-5, f"sharded YOLO step 1: {name} beyond rtol 2e-4 / atol 2e-5 "
+                                  f"by {yerr[name]}")
+    out["yolo_step"] = {"parts": parts, "one_device_parts": ref_parts, **yerr}
+    out["hash_yolo"] = _digest(list(tr.state.params.values()) + list(tr.ema_params.values())
+                               + list(tr.state.batch_stats.values()))
+    # sharded validation: each rank predicts its rows, the detections gathered
+    preds = tr.predict_batches([batches[0][0]])
+    out["validation_detections"] = int(sum(len(p["scores"]) for p in preds))
+    del tr
+    ctr, m = _classifier_rank_step(torch, rcfg, cls_images, cls_labels, device)
+    check(_max_rel(m["loss"], ref_cls_m["loss"]) <= 1e-5 and m["accuracy"] == ref_cls_m[
+        "accuracy"], f"sharded classifier step: {m} vs {ref_cls_m}")
+    p_err = max(float(((ctr.state.params[k].detach() - v).abs() - 2e-4 * v.abs()).max())
+                for k, v in ref_cls_params.items())
+    s_err = max(float(((ctr.state.batch_stats[k] - v).abs() - 2e-4 * v.abs()).max())
+                for k, v in ref_cls_stats.items())
+    check(p_err <= 4e-3 and s_err <= 2e-5, f"sharded classifier step: params {p_err}, "
+                                           f"statistics {s_err} beyond the bounds")
+    out["classifier_step"] = {"metrics": m, "one_device": ref_cls_m, "params_excess": p_err,
+                              "stats_excess": s_err}
+    out["hash_classifier"] = _digest(list(ctr.state.params.values())
+                                     + list(ctr.state.batch_stats.values()))
+    del ctr
+
+    # run_sharded and the sharded full forward against run and run_full_host
+    got = {k: v.cpu().numpy() for k, v in pred.run_sharded(frames, spec)._asdict().items()}
+    full = pred.run_full_sharded(frames, spec)
+    sync()
+    for f in ("valid", "classes", "crop_classified", "final_severity", "severity_counts"):
+        check(np.array_equal(got[f], ref_run[f]), f"run_sharded: {f} differs from run")
+    v = ref_run["valid"]
+    box_err = float(np.abs(got["boxes"][v] - ref_run["boxes"][v]).max()) if v.any() else 0.0
+    score_err = float(np.abs(got["ensemble_conf"][v] - ref_run["ensemble_conf"][v]).max()) \
+        if v.any() else 0.0
+    check(box_err <= 1.0 and score_err <= 1e-3, f"run_sharded: boxes {box_err} px, "
+                                                f"scores {score_err} from run")
+    check(np.array_equal(full[0].valid, ref_full[0].valid), "run_full_sharded: valid differs")
+    agree = float(np.mean(full[1] == ref_full[1]))
+    check(agree >= MASK_AGREEMENT, f"run_full_sharded: masks agree on {agree:.6f} of pixels")
+    out["run_sharded"] = {"detections": int(v.sum()), "classified": int(got["crop_classified"].sum()),
+                          "box_max_abs_err_px": box_err, "score_max_abs_err": score_err,
+                          "mask_agreement": agree, "masks_on": int(full[1].sum())}
+    out["launches"] = read_launches()
+
+    # 3. the sharded step's time at global batch 16 (bf16), against one card
+    tr = train_yolo.YOLOTrainer(bcfg, device=device)
+    tr.build(steps_per_epoch=16)
+    rows16 = pm.shard_batch(spec, _corpus(torch, 16, 640, 64, "cpu"))
+    timing["sharded_ms"], timing["sharded_step_ms"] = _timed_steps(torch, tr, rows16, 16)
+    timing["sharded_profile"] = _step_profile(torch, lambda: tr._step(
+        *rows16, inbatch_mosaic=False, global_b=16))
+    timing["images_per_s"] = 16 / timing["sharded_ms"] * 1e3
+    timing["one_card_images_per_s"] = 16 / timing["one_card_ms"] * 1e3
+    out["timing"] = timing
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _run_ranks(n, out_dir, timeout):
+    """torch.distributed.run of this script's rank body on n ranks, in a
+    process group of its own that is killed whole on a timeout."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n}", os.path.join(REPO, "chip_smoke.py"), "--multi-device-rank",
+           out_dir]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        log, _ = proc.communicate()
+        print(log[-4000:])
+        raise PhaseFailed(f"the ranks ran past {timeout} s (a hung collective?)")
+    if proc.returncode != 0:
+        print(log[-6000:])
+    check(proc.returncode == 0, f"torch.distributed.run exited {proc.returncode}")
+    return [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(n)]
+
+
+def phase_multi_device(torch):
+    """Phase 13: the multi-device path on min(cards, 4) NCCL ranks, each rank
+    holding it against the unsharded path on its card; then K1-K3 at the
+    per-rank shapes."""
+    import tempfile
+
+    n = min(torch.cuda.device_count(), 4)
+    out_dir = tempfile.mkdtemp(prefix="iqc_multi_")
+    t = time.perf_counter()
+    ranks = _run_ranks(n, out_dir, timeout=420)
+    wall = time.perf_counter() - t
+    for key in ("hash_yolo", "hash_classifier"):
+        check(len({r[key] for r in ranks}) == 1, f"ranks differ after the steps ({key})")
+    r0 = ranks[0]
+    print(f"{n} NCCL rank(s) (torch.distributed.run, {r0['backend']}) in {wall:.2f} s, group "
+          f"joined in {r0['init_s']:.2f} s: shard_batch, replicate, cross_replica_mean, "
+          f"all_gather exact; BatchNorm on flat and textured halves within "
+          f"{max(r0['batchnorm_max_abs_err'].values()):.3e} of the one-device statistics and "
+          f"gradients; the loss normaliser {r0['loss_normaliser']}")
+    ys, cs, rs = r0["yolo_step"], r0["classifier_step"], r0["run_sharded"]
+    print(f"sharded YOLOv8n step (640^2, global batch 8, fp32, from the shipped checkpoint): "
+          f"losses within {ys['loss_rel']} of one device, params/EMA/statistics within the "
+          f"bounds (excess {ys['params']:.2e}/{ys['ema']:.2e}/{ys['batch_stats']:.2e}); "
+          f"classifier step loss {cs['metrics']['loss']:.6f} vs {cs['one_device']['loss']:.6f}; "
+          f"ranks bitwise equal after the steps: {n} of {n}")
+    print(f"run_sharded of 8 frames at the shipped profile: {rs['detections']} detections, "
+          f"{rs['classified']} classified, boxes within {rs['box_max_abs_err_px']:.3e} px, "
+          f"scores within {rs['score_max_abs_err']:.3e} of run; run_full_sharded masks agree "
+          f"on {rs['mask_agreement']:.6f} of pixels ({rs['masks_on']} on); K1-K3 launches on "
+          f"the sharded path {r0['launches']}")
+    check(r0["launches"]["suppress"] >= 3 and r0["launches"]["grow_clean"] >= 1
+          and r0["launches"]["clean"] >= 1, f"the sharded path's launches {r0['launches']}")
+    tm = r0["timing"]
+    print(f"YOLOv8n bf16 step at global batch 16: {tm['sharded_ms']:.2f} ms on {n} ranks "
+          f"({tm['images_per_s']:.1f} images/s), {tm['one_card_ms']:.2f} ms on one card "
+          f"({tm['one_card_images_per_s']:.1f} images/s); profiled step, sharded "
+          f"{tm['sharded_profile']}, one card {tm['one_card_profile']}")
+    # K1-K3 at the per-rank shapes of the sharded full forward
+    dev = torch.device("cuda")
+    per = 8 // n
+    seg = min(64, per * 16)
+    rows = {}
+    for c in kernel_cases(torch, dev, per, seg):
+        got, want = c["wrapper"](), c["plain"]()
+        err = max_err(torch, got, want)
+        check(err == 0, f"{c['name']} {c['shape']} differs from its plain version")
+        bound_ms, bound_by = bound(c["n_bytes"], c["n_ops"])
+        rows[c["name"]] = {"shape": c["shape"], "ms": graph_ms(torch, c["raw"]),
+                           "wrapper_ms": cuda_time_ms(c["wrapper"]),
+                           "plain_ms": cuda_time_ms(c["plain"], warmup=2, iters=10),
+                           "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+    print("K1-K3 at the per-rank shapes " + ", ".join(
+        f"{k} {v['shape']} {v['ms']:.5f} ms" for k, v in rows.items()) + ": equal to plain")
+    return {"ranks": n, "wall_s": wall, "rank0": r0, "launches": r0["launches"],
+            "kernels": rows}
+
+
+def main(only_multi_device: bool = False) -> int:
+    """The smoke; ``only_multi_device`` runs the environment, the build and
+    phase 13 alone (for a host with several cards)."""
     t_all = time.perf_counter()
     try:
         import torch
@@ -2090,6 +2520,16 @@ def main() -> int:
             smi = phase_environment(torch)
         with Phase("build", 420):
             phase_build()
+        if only_multi_device:
+            with Phase("multi-device", 600):
+                multi = phase_multi_device(torch)
+            print(json.dumps({"multi_device": multi}))
+            print(f"total wall time {time.perf_counter() - t_all:.2f} s")
+            print(smi)
+            print(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}}), flush=True)
+            return 0
         with Phase("kernels", 180):
             kernels = phase_kernels(torch)
         images = [defect_image(s) for s in range(8)]
@@ -2119,6 +2559,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         with Phase("classifier training", 300):
             classifier = phase_classifier_training(torch)
+        torch.cuda.empty_cache()
+        with Phase("multi-device", 600):
+            multi = phase_multi_device(torch)
     except Exception as e:  # every phase failure ends the run without a result
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)
         return 1
@@ -2137,6 +2580,8 @@ def main() -> int:
             row["segmentator_shapes"] = standalone[counter]
         row["launches_training"] = training["launches"][counter]
         row["launches_classifier_training"] = classifier["launches"][counter]
+        row["launches_multi_device"] = multi["launches"][counter]
+        row["multi_device_shape"] = multi["kernels"][counter]
         if counter == "suppress":
             row["training_shape"] = training["k1"]
     print(json.dumps({"int8_resnet_layers": int8_layers}))
@@ -2147,6 +2592,7 @@ def main() -> int:
         print(json.dumps({f"training_{key}": training[key]}))
     for key in ("entry_point", "served_checkpoint", "step_times", "card_vs_cpu"):
         print(json.dumps({f"classifier_{key}": classifier[key]}))
+    print(json.dumps({"multi_device": {k: v for k, v in multi.items() if k != "kernels"}}))
     print(f"total wall time {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -2157,4 +2603,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--multi-device-rank"]:
+        sys.exit(multi_device_rank(sys.argv[2]))
+    sys.exit(main(only_multi_device=sys.argv[1:] == ["--only-multi-device"]))

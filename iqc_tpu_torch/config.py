@@ -219,6 +219,21 @@ class EdgeConfig:
 
 
 @dataclass
+class MeshConfig:
+    """The data-parallel mesh of a job launched with one process per rank
+    (``parallel/mesh.py``): ``data_parallel`` ranks along ``data_axis``
+    (-1: every rank of the launched group not claimed by the model axis)
+    times ``model_parallel`` along ``model_axis``. A single process is a
+    mesh of 1."""
+
+    enabled: bool = True
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1  # -1 = every rank of the group
+    model_parallel: int = 1
+
+
+@dataclass
 class QCSpecificConfig:
     """Per-class confidence floors, per-class training-loss weights,
     severity-rule thresholds and post-processing overrides (empty = the
@@ -444,6 +459,7 @@ class SystemConfig:
     spc: SPCConfig = field(default_factory=SPCConfig)
     api: ServingConfig = field(default_factory=ServingConfig)
     edge: EdgeConfig = field(default_factory=EdgeConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     alerts: AlertsConfig = field(default_factory=AlertsConfig)
     storage: StorageConfig = field(default_factory=StorageConfig)
     qc_specific: QCSpecificConfig = field(default_factory=QCSpecificConfig)
@@ -478,6 +494,7 @@ class SystemConfig:
         spc_raw = dict(raw.pop("spc", None) or {})
         api_raw = dict(raw.pop("api", None) or {})
         edge_raw = dict(raw.pop("edge", None) or {})
+        mesh_raw = dict(raw.pop("mesh", None) or {})
         alerts_raw = dict(raw.pop("alerts", None) or {})
         storage_raw = dict(raw.pop("storage", None) or {})
         qc_spec_raw = dict(raw.pop("qc_specific", None) or {})
@@ -564,6 +581,7 @@ class SystemConfig:
             spc=spc,
             api=api,
             edge=_build(EdgeConfig, edge_raw),
+            mesh=_build(MeshConfig, mesh_raw),
             alerts=alerts,
             storage=_build(StorageConfig, storage_raw),
             qc_specific=_build(QCSpecificConfig, qc_spec_raw),

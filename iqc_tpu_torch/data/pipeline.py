@@ -170,12 +170,20 @@ def device_prefetch(iterator: Iterator, device="cuda", size: int = 2, leaves=Non
     ``device``, ``size`` batches uploaded ahead of the one yielded. On a
     card each upload is a non-blocking copy from pinned memory, so it
     overlaps the work queued before it. ``leaves``: upload only these keys
-    (the rest pass through)."""
-    device = torch.device(device)
+    (the rest pass through). ``device`` may be a data-parallel mesh
+    (``parallel.mesh.MeshSpec``), as the JAX version takes a sharding: each
+    array is then cut to this rank's rows (``shard_batch``, a ragged batch
+    padded with zero rows) and only those go to the mesh's device."""
+    from iqc_tpu_torch.parallel.mesh import MeshSpec, shard_batch
+
+    mesh = device if isinstance(device, MeshSpec) else None
+    device = mesh.device if mesh is not None else torch.device(device)
     buf: collections.deque = collections.deque()
 
     def put(batch):
         keys = batch.keys() if leaves is None else leaves
+        if mesh is not None:
+            return {k: (shard_batch(mesh, v) if k in keys else v) for k, v in batch.items()}
         return {k: (_upload(v, device) if k in keys else v) for k, v in batch.items()}
 
     it = iter(iterator)

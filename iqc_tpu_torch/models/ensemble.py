@@ -59,6 +59,7 @@ from iqc_tpu_torch.ops.boxes import box_area
 from iqc_tpu_torch.ops.jit_utils import hoisted_jit
 from iqc_tpu_torch.ops.nms import Detections, decode_and_nms, make_anchors
 from iqc_tpu_torch.ops.segmentation import CLASS_TO_METHOD, segment_rois, table_lookup
+from iqc_tpu_torch.parallel.mesh import all_gather_rows, create_mesh, shard_batch
 from iqc_tpu_torch.weights import load_into, load_or_init, to_flax
 
 
@@ -161,11 +162,12 @@ class FullForward(nn.Module):
         conf, cls = torch.max(probs, dim=-1)
         return conf, cls.to(torch.int32)
 
-    def ensemble(self, x: torch.Tensor, conf_t, iou_t, w_yolo, w_resnet,
-                 sev_rules: Optional[torch.Tensor] = None) -> EnsembleOutputs:
-        """Detection, classification and fusion on float images [B,H,W,3].
-        ``conf_t`` (a scalar or [C] per-class floors), ``iou_t``, ``w_yolo``
-        and ``w_resnet`` are floats or float32 tensors on the device."""
+    def detect(self, images: torch.Tensor, conf_t, iou_t,
+               sev_rules: Optional[torch.Tensor] = None) -> "_Rows":
+        """The per-image half of the forward on a batch (on a mesh, this
+        rank's rows): detection, the whole-image classification, the crops
+        of the top ``max_classified`` survivors and the crop pool's key."""
+        x = self._input(images)
         b = x.shape[0]
         kc, ci = self.max_classified, self.classifier_input
 
@@ -177,31 +179,43 @@ class FullForward(nn.Module):
         )
         areas = box_area(det.boxes)
         yolo_sev = detection_severity(det.scores, areas, sev_rules)
-
         global_probs = torch.softmax(
             self.resnet(preprocess_for_classifier(x, ci)).to(torch.float32), dim=-1)
-
         crops = imops.crop_and_resize(x, det.boxes[:, :kc], (ci, ci), self.compute_dtype)
         crops_flat = imops.normalize_imagenet(crops.reshape(b * kc, ci, ci, 3))
+        return _Rows(x, det, areas, yolo_sev, global_probs, crops_flat,
+                     _pool_key(det.valid[:, :kc], det.scores[:, :kc]))
+
+    def fuse(self, rows: "_Rows", key: torch.Tensor, offset: int, w_yolo, w_resnet,
+             sev_rules: Optional[torch.Tensor] = None) -> EnsembleOutputs:
+        """Crop classification and fusion of ``rows``. ``key`` is the crop
+        pool's key over the whole batch (on a mesh every rank's, gathered in
+        image order) and ``offset`` the index of the first slot of ``rows``
+        in it: the pool holds the best ``crop_pool`` real survivors of the
+        whole batch, of which these rows classify their own."""
+        x, det, areas, yolo_sev, global_probs, crops_flat = rows[:6]
+        b = x.shape[0]
+        kc = self.max_classified
         pool = self.crop_pool
-        if pool and pool < b * kc:
+        if pool and pool < key.shape[0]:
             # one ResNet forward over the batch's best `pool` real survivors
-            flat_valid = det.valid[:, :kc].reshape(b * kc)
-            flat_scores = det.scores[:, :kc].reshape(b * kc)
-            flat_classes = det.classes[:, :kc].reshape(b * kc)
-            key = torch.where(flat_valid, flat_scores + 2.0, flat_scores)
-            idx = _top_indices(key, pool)
-            ok = flat_valid[idx]
-            p_conf, p_class = self._classify(crops_flat[idx])
+            n = b * kc
+            flat_valid = det.valid[:, :kc].reshape(n)
+            flat_scores = det.scores[:, :kc].reshape(n)
+            flat_classes = det.classes[:, :kc].reshape(n)
+            sel, ok = _own_slots(_top_indices(key, pool), offset, n, min(pool, n))
+            ok = ok & flat_valid[sel.clamp(max=n - 1)]
+            p_conf, p_class = self._classify(crops_flat[sel.clamp(max=n - 1)])
+            # slot n takes the writes of the pool entries of other ranks
             mock = torch.clamp(flat_scores * 1.1, max=1.0)
-            cc_conf = mock.clone()
-            cc_conf[idx] = torch.where(ok, p_conf, mock[idx])
-            cc_class = flat_classes.clone()
-            cc_class[idx] = torch.where(ok, p_class, flat_classes[idx])
-            classified_kc = torch.zeros(b * kc, dtype=torch.bool, device=x.device)
-            classified_kc[idx] = ok
-            cc_conf, cc_class = cc_conf.reshape(b, kc), cc_class.reshape(b, kc)
-            classified_kc = classified_kc.reshape(b, kc)
+            cc_conf = torch.cat([mock, mock[:1]])
+            cc_conf[sel] = torch.where(ok, p_conf, cc_conf[sel])
+            cc_class = torch.cat([flat_classes, flat_classes[:1]])
+            cc_class[sel] = torch.where(ok, p_class, cc_class[sel])
+            classified_kc = torch.zeros(n + 1, dtype=torch.bool, device=x.device)
+            classified_kc[sel] = ok
+            cc_conf, cc_class = cc_conf[:n].reshape(b, kc), cc_class[:n].reshape(b, kc)
+            classified_kc = classified_kc[:n].reshape(b, kc)
             cc_sev = torch.where(classified_kc,
                                  classifier_severity(cc_class, cc_conf, sev_rules),
                                  yolo_sev[:, :kc])
@@ -238,20 +252,32 @@ class FullForward(nn.Module):
             image_confidence=img_conf,
         )
 
-    def forward(self, images: torch.Tensor, conf_t, iou_t, w_yolo, w_resnet,
-                sev_rules: Optional[torch.Tensor] = None):
-        """images [B,H,W,3] uint8 or float -> (det [B,K,15], img [B,4+C],
-        masks [B,S,R,R] bool, seg_stats [B,S,5])."""
-        x = self._input(images)
-        out = self.ensemble(x, conf_t, iou_t, w_yolo, w_resnet, sev_rules)
-        det, img = pack_outputs(out)
+    def ensemble(self, x: torch.Tensor, conf_t, iou_t, w_yolo, w_resnet,
+                 sev_rules: Optional[torch.Tensor] = None) -> EnsembleOutputs:
+        """Detection, classification and fusion on float images [B,H,W,3].
+        ``conf_t`` (a scalar or [C] per-class floors), ``iou_t``, ``w_yolo``
+        and ``w_resnet`` are floats or float32 tensors on the device."""
+        rows = self.detect(x, conf_t, iou_t, sev_rules)
+        return self.fuse(rows, rows.crop_key, 0, w_yolo, w_resnet, sev_rules)
+
+    def seg_rows(self, x: torch.Tensor, out: EnsembleOutputs) -> "_SegRows":
+        """The ROIs of the top ``max_segmented`` survivors of each image and
+        the seg pool's key."""
         gray = imops.rgb_to_gray(x)
         b, s, r = x.shape[0], self.max_segmented, self.roi_size
         boxes = out.boxes[:, :s]
         rois = imops.crop_and_resize(gray[..., None], boxes, (r, r))[..., 0].reshape(b * s, r, r)
-        flat_boxes = boxes.reshape(b * s, 4)
-        flat_cls = out.classes[:, :s].reshape(b * s)
-        flat_valid = out.valid[:, :s].reshape(b * s)
+        return _SegRows(rois, boxes.reshape(b * s, 4), out.classes[:, :s].reshape(b * s),
+                        out.valid[:, :s].reshape(b * s),
+                        _pool_key(out.valid[:, :s], out.yolo_scores[:, :s]))
+
+    def segment(self, seg: "_SegRows", key: torch.Tensor, offset: int):
+        """Masks [n,R,R] and statistics [n,5] of ``seg``'s n ROIs. ``key`` and
+        ``offset`` as in ``fuse``: with a seg pool the batch's best
+        ``seg_pool`` real survivors are segmented, the rest get an empty
+        mask, zero statistics and their class's method id."""
+        rois, flat_boxes, flat_cls, flat_valid = seg[:4]
+        n, r = rois.shape[0], self.roi_size
 
         def scales(bx):
             bw = torch.clamp(bx[:, 2] - bx[:, 0], min=1.0)
@@ -259,19 +285,18 @@ class FullForward(nn.Module):
             return bw / r, bh / r
 
         pool = self.seg_pool
-        if pool and pool < b * s:
-            # segment only the batch's best `pool` real survivors; the rest
-            # get an empty mask, zero statistics and their class's method id
-            key = torch.where(flat_valid, out.yolo_scores[:, :s].reshape(b * s) + 2.0,
-                              out.yolo_scores[:, :s].reshape(b * s))
-            idx = _top_indices(key, pool)
-            sx, sy = scales(flat_boxes[idx])
-            sp = segment_rois(rois[idx], flat_cls[idx], flat_valid[idx], sx, sy)
-            masks = torch.zeros((b * s, r, r), dtype=torch.bool, device=x.device)
-            masks[idx] = sp.masks
-            stats = torch.zeros((b * s, 5), dtype=torch.float32, device=x.device)
+        if pool and pool < key.shape[0]:
+            sel, ok = _own_slots(_top_indices(key, pool), offset, n, min(pool, n))
+            g = sel.clamp(max=n - 1)
+            sx, sy = scales(flat_boxes[g])
+            sp = segment_rois(rois[g], flat_cls[g], ok & flat_valid[g], sx, sy)
+            # row n takes the writes of the pool entries of other ranks
+            masks = torch.zeros((n + 1, r, r), dtype=torch.bool, device=rois.device)
+            masks[sel] = sp.masks
+            stats = torch.zeros((n + 1, 5), dtype=torch.float32, device=rois.device)
             for col, val in enumerate((sp.area, sp.perimeter, sp.compactness, sp.confidence)):
-                stats[idx, col] = val.to(torch.float32)
+                stats[sel, col] = val.to(torch.float32)
+            masks, stats = masks[:n], stats[:n]
             n_cls = len(CLASS_TO_METHOD)
             stats[:, 4] = table_lookup(CLASS_TO_METHOD,
                                        torch.clamp(flat_cls.long(), 0, n_cls - 1)).to(torch.float32)
@@ -281,7 +306,87 @@ class FullForward(nn.Module):
             masks = sp.masks
             stats = torch.stack([sp.area, sp.perimeter, sp.compactness, sp.confidence,
                                  sp.method.to(torch.float32)], dim=-1)
+        return masks, stats
+
+    def forward(self, images: torch.Tensor, conf_t, iou_t, w_yolo, w_resnet,
+                sev_rules: Optional[torch.Tensor] = None):
+        """images [B,H,W,3] uint8 or float -> (det [B,K,15], img [B,4+C],
+        masks [B,S,R,R] bool, seg_stats [B,S,5])."""
+        rows = self.detect(images, conf_t, iou_t, sev_rules)
+        out = self.fuse(rows, rows.crop_key, 0, w_yolo, w_resnet, sev_rules)
+        seg = self.seg_rows(rows.x, out)
+        masks, stats = self.segment(seg, seg.key, 0)
+        det, img = pack_outputs(out)
+        b, s, r = rows.x.shape[0], self.max_segmented, self.roi_size
         return det, img, masks.reshape(b, s, r, r), stats.reshape(b, s, 5)
+
+    def sharded(self, spec, images: torch.Tensor, conf_t, iou_t, w_yolo, w_resnet,
+                sev_rules: Optional[torch.Tensor] = None, full: bool = True, stages=None):
+        """The forward data-parallel over the mesh ``spec``: ``images`` are
+        this rank's rows of the global batch. The per-image stages run on
+        the rank; the two pools choose over the whole batch from the keys
+        of every rank, gathered in image order (collectives between the
+        stages, never inside one). Returns this rank's rows: the
+        EnsembleOutputs (``full=False``) or ``forward``'s four tensors.
+        ``stages`` maps a stage's name (``detect``, ``fuse``, ``seg_rows``,
+        ``segment``) to the callable that runs it (captured graphs on the
+        card); by default the methods themselves."""
+        stage = lambda name: (stages or {}).get(name, getattr(self, name))
+        rows = stage("detect")(images, conf_t, iou_t, sev_rules)
+        n_crops = rows.crop_key.shape[0]
+        key = all_gather_rows(spec, rows.crop_key)
+        out = stage("fuse")(rows, key, spec.data_index * n_crops, w_yolo, w_resnet, sev_rules)
+        if not full:
+            return out
+        seg = stage("seg_rows")(rows.x, out)
+        n_rois = seg.key.shape[0]
+        masks, stats = stage("segment")(seg, all_gather_rows(spec, seg.key),
+                                        spec.data_index * n_rois)
+        det, img = pack_outputs(out)
+        b, s, r = rows.x.shape[0], self.max_segmented, self.roi_size
+        return det, img, masks.reshape(b, s, r, r), stats.reshape(b, s, 5)
+
+
+class _Rows(NamedTuple):
+    """``FullForward.detect``'s outputs on a batch of B images."""
+
+    x: torch.Tensor            # [B,H,W,3] float input
+    det: Detections
+    areas: torch.Tensor        # [B,K]
+    yolo_sev: torch.Tensor     # [B,K]
+    global_probs: torch.Tensor  # [B,C]
+    crops_flat: torch.Tensor   # [B*kc,ci,ci,3] normalised crops
+    crop_key: torch.Tensor     # [B*kc] the crop pool's key
+
+
+class _SegRows(NamedTuple):
+    """``FullForward.seg_rows``' outputs on a batch of B images."""
+
+    rois: torch.Tensor         # [B*S,R,R] grey ROIs
+    boxes: torch.Tensor        # [B*S,4]
+    classes: torch.Tensor      # [B*S]
+    valid: torch.Tensor        # [B*S]
+    key: torch.Tensor          # [B*S] the seg pool's key
+
+
+def _pool_key(valid: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+    """The pools' flat sort key over (image, slot): valid slots sort above
+    invalid ones (scores lie in [0,1]), then by score."""
+    flat = scores.reshape(-1)
+    return torch.where(valid.reshape(-1), flat + 2.0, flat)
+
+
+def _own_slots(idx: torch.Tensor, offset: int, n: int, m: int):
+    """Of the pool's flat indices ``idx`` (into a key of the whole batch),
+    the first ``m`` that fall into this batch's slots [offset, offset + n),
+    in pool order, as local slot indices, then indices n (no slot) to fill
+    ``m``; and whether each is one of this batch's. ``m`` is static, so
+    that the shapes are."""
+    loc = idx - offset
+    own = (loc >= 0) & (loc < n)
+    order = torch.sort((~own).to(torch.uint8), stable=True).indices[:m]
+    own = own[order]
+    return torch.where(own, loc[order], torch.full_like(loc[order], n)), own
 
 
 def pack_outputs(out: EnsembleOutputs):
@@ -416,6 +521,11 @@ class EnsemblePredictor:
         self._forward_packed = hoisted_jit(
             lambda images, *a: pack_outputs(fwd.ensemble(fwd._input(images), *a)))
         self._forward_full = hoisted_jit(fwd)
+        # the sharded forward's stages, each captured on its own: the
+        # collectives run between them (run_sharded)
+        self._stages = {name: hoisted_jit(getattr(fwd, name))
+                        for name in ("detect", "fuse", "seg_rows", "segment")}
+        self._mesh_spec = None
 
     # -- int8 serving ------------------------------------------------------------
 
@@ -518,7 +628,8 @@ class EnsemblePredictor:
         fwd = getattr(self, "full_forward", None)
         if fwd is not None:
             fwd.yolo, fwd.resnet = self.yolo, self.resnet
-            for jitted in (self._forward, self._forward_packed, self._forward_full):
+            for jitted in (self._forward, self._forward_packed, self._forward_full,
+                           *self._stages.values()):
                 jitted.clear()  # the graphs read the networks they replaced
         q_bytes = resnet_int8.tree_size_bytes(self.resnet_vars["q"])
         v1_mode = "true-int8 MXU (static calibrated activations)"
@@ -620,6 +731,40 @@ class EnsemblePredictor:
         with torch.inference_mode():
             det, img, masks, stats = self._forward_full(x, *self._args())
             det, img, masks, stats = (t.cpu().numpy() for t in (det, img, masks, stats))
+        return unpack_outputs(det, img), masks, stats
+
+    def _sharded(self, images, mesh_spec, full: bool):
+        spec = mesh_spec or self._mesh_spec
+        if spec is None:
+            spec = self._mesh_spec = create_mesh(self.config.mesh, device=self.device)
+        n = len(images)
+        if n % spec.data_size:
+            raise ValueError(f"a batch of {n} images does not divide over the "
+                             f"{spec.data_size} ranks of the data axis")
+        x = shard_batch(spec, torch.as_tensor(np.asarray(images) if not isinstance(
+            images, torch.Tensor) else images))
+        with torch.inference_mode():
+            out = self.full_forward.sharded(spec, x, *self._args(), full=full,
+                                            stages=self._stages)
+            rows = [all_gather_rows(spec, t) for t in out]
+        return EnsembleOutputs(*rows) if not full else tuple(rows)
+
+    def run_sharded(self, images, mesh_spec=None) -> EnsembleOutputs:
+        """``run`` data-parallel over the mesh (``mesh_spec``, by default
+        ``create_mesh(config.mesh)``): every rank is handed the same global
+        batch [B,H,W,3] (B a multiple of the data size) and the same
+        weights, runs its rows, and returns the whole batch's outputs
+        (tensors on its device), as the JAX version returns a global array.
+        The crop pool chooses over the whole batch, so the result is
+        ``run``'s; the qc_specific overrides apply as in ``run``."""
+        return self._sharded(images, mesh_spec, full=False)
+
+    def run_full_sharded(self, images, mesh_spec=None):
+        """``run_full_host`` data-parallel over the mesh, as ``run_sharded``
+        (both pools choose over the whole batch): numpy
+        (EnsembleOutputs, masks [B,S,R,R], seg_stats [B,S,5]) on every rank."""
+        det, img, masks, stats = (t.cpu().numpy() for t in
+                                  self._sharded(images, mesh_spec, full=True))
         return unpack_outputs(det, img), masks, stats
 
     def build_result(self, out: EnsembleOutputs, i: int, image_shape) -> Dict:

@@ -12,7 +12,9 @@ A network in float32 runs the same operations as the plain float modules.
 In training mode (``module.train()``) BatchNorm normalizes with the batch's
 own statistics and moves its running averages, as Flax's
 ``nn.BatchNorm(use_running_average=False)`` does; ``init_flax`` draws the
-initial weights from Flax's initializers.
+initial weights from Flax's initializers. On a data-parallel mesh
+(``set_mesh``) those statistics cover the global batch, as they do under
+GSPMD in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from iqc_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 def conv2d(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -49,38 +53,51 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.reciprocal(1 + torch.exp(-x))
 
 
-class _ChannelMean(torch.autograd.Function):
-    """Mean over every dim but 1 of a float32 CPU tensor, summed in sequence
-    over the flattened N, H, W positions (each channel's running sum
-    rounded at every add) and scaled by the float32 reciprocal of the
-    count: the order and rounding of XLA's CPU reduction in the JAX
-    package. The backward is the mean's (each input gets grad / count)."""
+class _ChannelSum(torch.autograd.Function):
+    """Sum over every dim but 1 of a float32 CPU tensor, in sequence over
+    the flattened N, H, W positions (each channel's running sum rounded at
+    every add): the order and rounding of XLA's CPU reduction in the JAX
+    package. The backward hands every input the gradient of its channel."""
 
     @staticmethod
     def forward(ctx, x):
         c = x.shape[1]
         rows = x.detach().movedim(1, -1).reshape(-1, c).numpy()
-        n = rows.shape[0]
-        # numpy adds the rows of a C-contiguous [n, c] array one after another
-        total = np.add.reduce(np.ascontiguousarray(rows), axis=0, dtype=np.float32)
-        ctx.shape, ctx.n = x.shape, n
-        return torch.from_numpy(total * np.float32(1.0 / n))
+        ctx.shape = x.shape
+        return torch.from_numpy(np.add.reduce(np.ascontiguousarray(rows), axis=0,
+                                              dtype=np.float32))
 
     @staticmethod
     def backward(ctx, grad):
         shape = (1, -1) + (1,) * (len(ctx.shape) - 2)
-        return (grad * np.float32(1.0 / ctx.n)).view(shape).expand(ctx.shape).contiguous()
+        return grad.view(shape).expand(ctx.shape).contiguous()
 
 
-def channel_mean(x: torch.Tensor) -> torch.Tensor:
-    """Float32 mean of ``x`` over every dim but 1. On the CPU in XLA's
-    summation order (``_ChannelMean``): the batch statistics' fast variance
+def channel_sum(x: torch.Tensor) -> torch.Tensor:
+    """Float32 sum of ``x`` over every dim but 1. On the CPU in XLA's
+    summation order (``_ChannelSum``): the batch statistics' fast variance
     cancels ``mean(x^2)`` against ``mean(x)^2``, which on flat images
     magnifies a difference of summation order a thousandfold. On the card,
     PyTorch's reduction."""
     if x.device.type == "cpu":
-        return _ChannelMean.apply(x)
-    return x.mean([d for d in range(x.dim()) if d != 1])
+        return _ChannelSum.apply(x)
+    return x.sum([d for d in range(x.dim()) if d != 1])
+
+
+def global_channel_moments(x: torch.Tensor, mesh=None):
+    """Float32 ``mean(x)`` and ``mean(x^2)`` over every dim but 1 of the
+    global batch that the data axis of ``mesh`` holds (None: this rank's
+    batch alone): each rank sums its rows (``channel_sum``), one all-reduce
+    sums both channel sums over the ranks, and the sums are scaled by the
+    float32 reciprocal of the global count (not a mean of per-rank means).
+    The all-reduce's backward all-reduces the gradient, so every rank's rows
+    receive the gradient of every rank's loss through the statistics."""
+    c = x.shape[1]
+    sums = all_reduce_sum(mesh, torch.cat([channel_sum(x), channel_sum(x * x)]))
+    n = x.numel() // c * (mesh.data_size if mesh is not None else 1)
+    # a Python float is taken as float32 by the multiply: no copy to the card
+    moments = sums * float(np.float32(1.0 / n))
+    return moments[:c], moments[c:]
 
 
 class BatchNorm(nn.Module):
@@ -89,11 +106,12 @@ class BatchNorm(nn.Module):
 
     In evaluation mode mean and var are the running averages. In training
     mode they are the batch's, computed in float32 (also from bfloat16
-    input) over every dim but 1 (``channel_mean``), the variance as
-    ``mean(x^2) - mean(x)^2`` clipped at 0 (biased, Flax's fast variance);
-    the running averages then move to ``momentum * running + (1 - momentum)
-    * batch`` with no Bessel correction. Autograd differentiates through the
-    same formula."""
+    input) over every dim but 1 (``global_channel_moments``), the variance
+    as ``mean(x^2) - mean(x)^2`` clipped at 0 (biased, Flax's fast
+    variance); the running averages then move to ``momentum * running + (1
+    - momentum) * batch`` with no Bessel correction. Autograd differentiates
+    through the same formula. With a ``mesh`` (``set_mesh``) the batch
+    statistics are the global batch's."""
 
     def __init__(self, features: int, eps: float, momentum: float = 0.97):
         super().__init__()
@@ -103,14 +121,15 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Computed in float32, returned in the dtype of ``x``."""
         shape = (1, -1) + (1,) * (x.dim() - 2)
         xf = x.to(torch.float32)
         if self.training:
-            mean = channel_mean(xf)
-            var = torch.clamp(channel_mean(xf * xf) - mean * mean, min=0.0)
+            mean, mean_sq = global_channel_moments(xf, self.mesh)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -120,6 +139,15 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(x.dtype)
+
+
+def set_mesh(module: nn.Module, mesh) -> None:
+    """Hand every BatchNorm of ``module`` the data-parallel mesh its training
+    statistics are global over (``parallel.mesh.MeshSpec``; None: this
+    rank's batch alone)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh
 
 
 def init_random(module: nn.Module, seed: int) -> None:

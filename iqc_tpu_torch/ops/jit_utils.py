@@ -19,6 +19,14 @@ function runs on the card as one CUDA graph per input signature:
   replays it, adds the recorded launches to their counters and returns
   clones of the graph's outputs.
 
+A captured graph holds no collective. The sharded forward
+(``FullForward.sharded``) is captured as four stages, one graph each, and
+its all-gathers run eagerly between the replays: every rank must enter the
+same collectives in the same order, a graph that held an NCCL call would
+have to be captured and replayed by every rank in lockstep, and gloo (the
+CPU's backend) cannot be captured at all; bracketed, the stages stay
+rank-local, and the process group's timeout watches each collective.
+
 A lock per wrapper serializes capture and replay. A capture that fails
 raises: nothing falls back to eager on the card. Arguments without a CUDA
 tensor run the function directly (the CPU). The cache is unbounded, as

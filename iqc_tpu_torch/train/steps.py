@@ -32,6 +32,13 @@ a staircase exponential, a constant) or, for the plateau schedule, from a
 float32 leaf of the state that ``set_learning_rate`` lowers between epochs
 (optax's ``inject_hyperparams``).
 
+On a data-parallel mesh (``shard_train_step``) each rank runs the step on
+its rows of the global batch: its loss is its share of the global loss (a
+local sum over the global count), the gradients of the shares are summed
+over the ranks (JAX's psum, not a mean of locally normalised losses), and
+every rank applies the same update to the same state, so the replicated
+state stays bitwise equal on every rank.
+
 The schedules and the EMA decay are scalars of the step number, computed
 on the host in float32 with the rounding that XLA gives the JAX package's
 expressions (it folds constants, turns a division by a constant into a
@@ -42,12 +49,15 @@ transcendental functions are taken in float64 and rounded.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from iqc_tpu_torch.parallel.mesh import all_reduce_sum
 
 f32 = np.float32
 
@@ -126,6 +136,15 @@ def _flat(tensors: List[torch.Tensor]) -> torch.Tensor:
 def _scatter(flat: torch.Tensor, dst: List[torch.Tensor]) -> None:
     torch._foreach_copy_(dst, [v.view_as(x) for v, x in
                                zip(flat.split([x.numel() for x in dst]), dst)])
+
+
+def all_reduce_grads(mesh, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The gradients summed over the data axis of ``mesh``, in one
+    all-reduce of their concatenation; unchanged without a group."""
+    if mesh is None or not mesh.distributed:
+        return list(grads)
+    flat = all_reduce_sum(mesh, _flat(grads))
+    return [v.view_as(g) for v, g in zip(flat.split([g.numel() for g in grads]), grads)]
 
 
 @torch.no_grad()
@@ -349,10 +368,13 @@ def set_learning_rate(state: ClassifierOptState, lr: float) -> ClassifierOptStat
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           label_smoothing: float = 0.0,
-                          class_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          class_weights: Optional[torch.Tensor] = None,
+                          mesh=None) -> torch.Tensor:
     """Mean over the batch of the cross-entropy against one-hot labels,
     smoothed to ``onehot * (1 - s) + s / C``, each sample's loss scaled by
-    its class's weight (the plain mean, not a weighted one)."""
+    its class's weight (the plain mean, not a weighted one). With a
+    ``mesh``: this rank's share of the global batch's mean (its rows' sum
+    over the global count)."""
     num_classes = logits.shape[-1]
     onehot = F.one_hot(labels.long(), num_classes).to(torch.float32)
     if label_smoothing > 0:
@@ -361,6 +383,8 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     loss = -torch.sum(onehot * logp, dim=-1)
     if class_weights is not None:
         loss = loss * class_weights[labels.long()]
+    if mesh is not None and mesh.distributed:
+        return torch.sum(loss) / (loss.shape[0] * mesh.data_size)
     return torch.mean(loss)
 
 
@@ -381,38 +405,92 @@ def device_normalize(images: torch.Tensor) -> torch.Tensor:
 
 def make_classifier_train_step(module: torch.nn.Module, optimizer: Optimizer,
                                label_smoothing: float = 0.0):
-    """step(state, images, labels, class_weights, dropout_masks=None) ->
-    {"loss", "accuracy"} (0-d tensors): one update of ``state`` (a
-    ``TrainState`` over ``module``, in place) from a batch on the device.
-    Integer images are normalised there (``device_normalize``);
-    ``dropout_masks`` are the head's keep masks (None: the module draws)."""
+    """step(state, images, labels, class_weights, dropout_masks=None,
+    mesh=None) -> {"loss", "accuracy"} (0-d tensors): one update of
+    ``state`` (a ``TrainState`` over ``module``, in place) from a batch on
+    the device. Integer images are normalised there (``device_normalize``);
+    ``dropout_masks`` are the head's keep masks (None: the module draws).
+    With a ``mesh`` (``shard_train_step``) the batch is this rank's rows:
+    the gradients of the rank's share of the loss are summed over the
+    ranks, and the returned loss and accuracy are the global batch's."""
 
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
-             class_weights: torch.Tensor, dropout_masks=None) -> Dict[str, torch.Tensor]:
+             class_weights: torch.Tensor, dropout_masks=None,
+             mesh=None) -> Dict[str, torch.Tensor]:
         module.train()
         names = list(state.params)
         logits = module(device_normalize(images), dropout_masks=dropout_masks)
-        loss = softmax_cross_entropy(logits, labels, label_smoothing, class_weights)
-        grads = torch.autograd.grad(loss, [state.params[k] for k in names])
+        loss = softmax_cross_entropy(logits, labels, label_smoothing, class_weights, mesh)
+        grads = all_reduce_grads(mesh, torch.autograd.grad(loss, [state.params[k]
+                                                                  for k in names]))
         state.opt_state = optimizer.update(state.params, dict(zip(names, grads)),
                                            state.opt_state)
         state.step += 1
-        acc = torch.mean((torch.argmax(logits.detach(), -1) == labels).to(torch.float32))
-        return {"loss": loss.detach(), "accuracy": acc}
+        correct = (torch.argmax(logits.detach(), -1) == labels).to(torch.float32)
+        if mesh is None or not mesh.distributed:
+            return {"loss": loss.detach(), "accuracy": torch.mean(correct)}
+        totals = all_reduce_sum(mesh, torch.stack([loss.detach(), torch.sum(correct)]))
+        return {"loss": totals[0], "accuracy": totals[1] / (labels.shape[0] * mesh.data_size)}
 
     return step
 
 
-def make_classifier_eval_step(module: torch.nn.Module):
-    """step(images, labels) -> {"loss" (unweighted, unsmoothed), "preds",
-    "labels", "probs"} of ``module`` in evaluation mode."""
+def shard_train_step(step_fn: Callable, spec) -> Callable:
+    """``step_fn`` (a ``make_classifier_train_step`` step) on the data axis
+    of ``spec``: called with this rank's rows of the global batch (and of
+    the dropout masks), it sums the gradients over the ranks and applies the
+    same update on every rank. A mesh without a group (a single process)
+    takes the plain step, as the JAX package takes plain jit at size 1."""
+    if spec is None or not spec.distributed:
+        return step_fn
+    return functools.partial(step_fn, mesh=spec)
 
-    @torch.no_grad()
-    def step(images: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
-        module.eval()
-        logits = module(device_normalize(images))
-        return {"loss": softmax_cross_entropy(logits, labels),
-                "preds": torch.argmax(logits, -1), "labels": labels,
-                "probs": torch.softmax(logits.to(torch.float32), dim=-1)}
 
-    return step
+def classifier_eval_outputs(logits: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The evaluation outputs (loss unweighted and unsmoothed, preds, labels,
+    probs) of a batch's logits."""
+    return {"loss": softmax_cross_entropy(logits, labels),
+            "preds": torch.argmax(logits, -1), "labels": labels,
+            "probs": torch.softmax(logits.to(torch.float32), dim=-1)}
+
+
+# -- one host buffer per batch ---------------------------------------------------------
+#
+# The JAX package uploads a single-device batch as one uint8 buffer and
+# bitcasts it back on the device (one transfer in place of one per array).
+# The port's trainers upload arrays directly; these are the same helpers.
+
+
+def pack_batch_host(arrays) -> np.ndarray:
+    """Host arrays concatenated into one uint8 buffer (their C-order bytes)."""
+    return np.concatenate([np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+                           for a in arrays])
+
+
+def batch_specs(arrays) -> List[Tuple[Tuple[int, ...], np.dtype]]:
+    """[(shape, dtype), ...] of the arrays, for ``unpack_batch_device``."""
+    return [(tuple(a.shape), np.dtype(a.dtype)) for a in arrays]
+
+
+_TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int8): torch.int8,
+                 np.dtype(np.int16): torch.int16, np.dtype(np.int32): torch.int32,
+                 np.dtype(np.int64): torch.int64, np.dtype(np.float16): torch.float16,
+                 np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
+
+
+def unpack_batch_device(buf: torch.Tensor, specs) -> List[torch.Tensor]:
+    """The inverse of ``pack_batch_host`` on a uint8 tensor (on any device):
+    each segment reinterpreted as its dtype and shape; bool arrays come back
+    as ``uint8 != 0``."""
+    out, off = [], 0
+    for shape, dtype in specs:
+        dt = np.dtype(dtype)
+        work = np.dtype(np.uint8) if dt == np.bool_ else dt
+        n = int(np.prod(shape, dtype=np.int64)) * work.itemsize
+        seg = buf[off:off + n]
+        if off % work.itemsize:  # a view as a wider type needs an aligned start
+            seg = seg.clone()
+        off += n
+        arr = seg.view(_TORCH_DTYPES[work]).reshape(shape)
+        out.append(arr != 0 if dt == np.bool_ else arr)
+    return out

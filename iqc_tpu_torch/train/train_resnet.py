@@ -1,4 +1,5 @@
-"""ResNet-50 defect-classifier trainer on one device.
+"""ResNet-50 defect-classifier trainer, on one device or data-parallel over
+a mesh.
 
 The JAX package's ``train/train_resnet.py`` on PyTorch: ResNet-50 (or -101)
 in training mode with the head's dropout, class-weighted cross-entropy with
@@ -19,14 +20,26 @@ masks and augmentation draws come from CPU generators seeded by (seed,
 step), so a run on the card and one on the CPU train on the same draws;
 ``draw_hook`` replaces them (the tests feed the JAX trainer's).
 
-The trainer runs on one device: ``device="cuda"`` unless the caller passes
-``device="cpu"``; there is no fallback from one to the other. A mesh of
-more than one device raises.
+The trainer runs on ``device="cuda"`` unless the caller passes
+``device="cpu"``; there is no fallback from one to the other. Under a
+launcher (``python -m torch.distributed.run --nproc-per-node N``) it trains
+data-parallel over the mesh of ``mesh_config`` (None: every rank of the
+job; ``parallel/mesh.py``), one rank per device, as the JAX package does
+on a mesh: the batch size must divide by the data-parallel size, every
+rank reads the same global batches, draws (augmentation and dropout masks
+for the global batch) and keeps its rows; the step
+(``steps.shard_train_step``) sums the gradients of each rank's share of the
+loss over the ranks. On a mesh of more than one rank batches stream (no
+device corpus), ``evaluate`` and ``test`` shard each batch and gather the
+logits, so every rank returns the same metrics, and rank 0 writes the
+checkpoints.
 
 Run: ``python -m iqc_tpu_torch.train.train_resnet --data-dir D`` where D
 holds ``train/`` (and optionally ``val/``, ``test/``) with a folder per
 class (``--config`` a JSON file shaped like ``config/resnet_config.yaml``,
-or YAML where PyYAML is installed).
+or YAML where PyYAML is installed); on N cards ``python -m
+torch.distributed.run --nproc-per-node N -m iqc_tpu_torch.train.train_resnet
+--data-dir D``.
 """
 
 from __future__ import annotations
@@ -43,12 +56,14 @@ import torch
 from iqc_tpu_torch.config import DEFECT_CLASSES
 from iqc_tpu_torch.data.pipeline import (DataLoader, ImageFolderDataset, balanced_sample_indices,
                                          device_prefetch)
-from iqc_tpu_torch.models.layers import exact_float32
+from iqc_tpu_torch.models.layers import exact_float32, set_mesh
 from iqc_tpu_torch.models.resnet import RESNET50_STAGES, RESNET101_STAGES, ResNet50, init_weights
 from iqc_tpu_torch.ops.mosaic import upload
+from iqc_tpu_torch.parallel.mesh import (all_gather_rows, create_mesh, distributed_init,
+                                         replicate, shard_batch)
 from iqc_tpu_torch.train import steps
 from iqc_tpu_torch.train.checkpoint import CheckpointManager, load_variables, save_variables
-from iqc_tpu_torch.train.train_yolo import _generator, _mesh_size
+from iqc_tpu_torch.train.train_yolo import _generator
 from iqc_tpu_torch.train.utils import (EarlyStopping, MetricsTracker, ReduceLROnPlateau,
                                        compute_class_weights, set_global_seed, training_report)
 
@@ -132,8 +147,9 @@ def config_from_profile(raw: Dict[str, Any]) -> Dict[str, Any]:
 
 class ResNetTrainer:
     """``train``, ``evaluate``, ``test``, ``save`` and ``resume`` of the
-    ResNet defect classifier on one device. ``step_metrics`` holds the loss
-    and accuracy of each step of the last epoch (host floats)."""
+    ResNet defect classifier on one device or on this rank's device of a
+    data-parallel mesh. ``step_metrics`` holds the loss and accuracy of each
+    step of the last epoch (host floats)."""
 
     ARCHITECTURES = {"resnet50": RESNET50_STAGES, "resnet101": RESNET101_STAGES}
 
@@ -146,12 +162,11 @@ class ResNetTrainer:
                 raise ValueError(f"Unsupported architecture: {arch}")
             c["stage_sizes"] = list(self.ARCHITECTURES[arch])
         self.device = torch.device(device)
-        if _mesh_size(mesh_config, self.device) > 1:
-            raise ValueError("the port trains on one device; a mesh of more than one device "
-                             "(multi-GPU training) is not ported")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass device='cpu' to train on "
                                "the CPU")
+        # None: every rank of the launched job (one process: a mesh of 1)
+        self.mesh = create_mesh(mesh_config, device=self.device)
         exact_float32(self.device)
         set_global_seed(c["seed"])
         dtype = torch.bfloat16 if c["compute_dtype"] == "bfloat16" else torch.float32
@@ -163,7 +178,6 @@ class ResNetTrainer:
         self.state: Optional[steps.TrainState] = None
         self.optimizer: Optional[steps.Optimizer] = None
         self._train_step = None
-        self._eval_step = None
         self._plateau: Optional[ReduceLROnPlateau] = None
         self._device_corpus = None
         self.draw_hook: Optional[DrawHook] = None
@@ -177,6 +191,9 @@ class ResNetTrainer:
     def setup_data(self, train_ds, val_ds=None, test_ds=None) -> None:
         self.train_ds, self.val_ds, self.test_ds = train_ds, val_ds, test_ds
         c = self.config
+        if c["batch_size"] % self.mesh.data_size:
+            raise ValueError(f"batch_size {c['batch_size']} must be divisible by data-parallel "
+                             f"size {self.mesh.data_size}")
         self.train_loader = DataLoader(train_ds, c["batch_size"], shuffle=True,
                                        balanced=c["balanced_sampling"], seed=c["seed"])
         self.val_loader = (DataLoader(val_ds, c["batch_size"], shuffle=False, drop_last=False)
@@ -230,6 +247,8 @@ class ResNetTrainer:
         self._active_prefixes = None
         init_weights(self.module, c["seed"])
         self.module.to(self.device).train()
+        set_mesh(self.module, self.mesh)
+        replicate(self.mesh, list(self.module.state_dict().values()))
         params = dict(self.module.named_parameters())
         opt_state = self.optimizer.init(params, masked=self._uses_freeze, plateau_lr=plateau_lr)
         self.state = steps.module_state(self.module, opt_state)
@@ -238,9 +257,9 @@ class ResNetTrainer:
         else:
             weights = np.ones((c["num_classes"],), np.float32)
         self._class_weights = torch.from_numpy(np.asarray(weights, np.float32)).to(self.device)
-        self._train_step = steps.make_classifier_train_step(self.module, self.optimizer,
-                                                            c["label_smoothing"])
-        self._eval_step = steps.make_classifier_eval_step(self.module)
+        self._train_step = steps.shard_train_step(
+            steps.make_classifier_train_step(self.module, self.optimizer, c["label_smoothing"]),
+            self.mesh)
         aug_raw = c.get("augmentation")
         if isinstance(aug_raw, dict) and "train" in aug_raw:
             aug_raw = aug_raw["train"]
@@ -257,7 +276,11 @@ class ResNetTrainer:
         has set up for the same model and optimizer."""
         from iqc_tpu_torch import weights
 
-        s = weights.train_state_from_flax(state)
+        self.load_state(weights.train_state_from_flax(state))
+
+    def load_state(self, s: Dict[str, Any]) -> None:
+        """Take a state in the form ``weights.train_state_from_flax``
+        returns into this trainer."""
         opt = self.state.opt_state
         if (s["mask"] is None) != (opt.mask is None):
             raise ValueError("the state's optimizer and this trainer's differ in the mask stage")
@@ -293,9 +316,13 @@ class ResNetTrainer:
 
     def _step(self, images: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
         """One update from a uint8 batch [B,S,S,3] and int labels [B] on the
-        device."""
-        b, h, w = images.shape[:3]
+        device: on a mesh, this rank's rows of a global batch of B times the
+        data size (the draws are the global batch's, cut to the rows).
+        Returns the global batch's loss and accuracy."""
+        h, w = images.shape[1:3]
+        b = images.shape[0] * self.mesh.data_size
         aug, masks = self._draws(self.state.step, b, h, w)
+        masks, aug = shard_batch(self.mesh, (tuple(masks), aug), upload=False)
         masks = tuple(upload(m, self.device) for m in masks)
         if self._aug_cfg is not None:
             from iqc_tpu_torch.data.augmentation import augment_image_and_boxes
@@ -326,6 +353,8 @@ class ResNetTrainer:
         labels int64 [N]), else None (streaming)."""
         if self._device_corpus is not None:
             return self._device_corpus
+        if self.mesh.size > 1:  # the JAX package streams on a mesh
+            return None
         ds = self.train_ds
         if ds is None or not hasattr(ds, "load") or not hasattr(ds, "labels"):
             return None
@@ -368,9 +397,14 @@ class ResNetTrainer:
             outs.append(self._step(imgs[i], labels[i]))
         return outs
 
+    def train_step(self, images, labels) -> Dict[str, torch.Tensor]:
+        """One update from a host or device batch (on a mesh the global
+        batch, of which this rank takes its rows)."""
+        return self._step(*shard_batch(self.mesh, (images, labels)))
+
     def _stream_epoch(self) -> List[Dict[str, torch.Tensor]]:
         return [self._step(b["images"], b["labels"])
-                for b in device_prefetch(self.train_loader, self.device)]
+                for b in device_prefetch(self.train_loader, self.mesh)]
 
     # -- loops -------------------------------------------------------------------------
 
@@ -415,12 +449,23 @@ class ResNetTrainer:
         return self._finish_epoch(outs, t0)
 
     def _eval_batches(self, loader):
-        outs = [self._eval_step(b["images"], b["labels"].long())
-                for b in device_prefetch(loader, self.device)]
+        outs = [self._eval_step(b["images"], torch.as_tensor(b["labels"]))
+                for b in device_prefetch(loader, self.mesh, leaves=("images",))]
         if not outs:
             return None
         return {k: torch.cat([o[k].reshape(-1, *o[k].shape[1:]) for o in outs]).cpu().numpy()
                 for k in outs[0]}
+
+    def _eval_step(self, images: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The evaluation outputs (loss, preds, labels, probs) of a global
+        batch: this rank's (padded) rows through the network in evaluation
+        mode, every rank's logits gathered, and the outputs of the whole
+        batch computed from them on every rank."""
+        with torch.no_grad():
+            self.module.eval()
+            logits = self.module(steps.device_normalize(images))
+            logits = all_gather_rows(self.mesh, logits)[:labels.shape[0]]
+            return steps.classifier_eval_outputs(logits, labels.to(self.device).long())
 
     def evaluate(self, loader) -> Dict[str, float]:
         """Mean loss, accuracy and macro P/R/F1 of the model in evaluation
@@ -449,7 +494,8 @@ class ResNetTrainer:
                 row.update({f"val_{k}": v for k, v in val_m.items() if isinstance(v, (int, float))})
                 acc = val_m["accuracy"]
                 best_acc = max(best_acc, acc)
-                self.checkpoints.step(epoch, row, self.variables())
+                if self.mesh.is_main:
+                    self.checkpoints.step(epoch, row, self.variables())
                 if self._plateau is not None:
                     new_lr = self._plateau.step(val_m["loss"])
                     if new_lr != row["learning_rate"]:
@@ -464,11 +510,13 @@ class ResNetTrainer:
                         row["accuracy"], f"{row.get('val_accuracy', float('nan')):.4f}",
                         train_m["epoch_seconds"])
         art = c["checkpoint_dir"]
-        self.metrics.export_json(os.path.join(art, "history.json"))
-        self.metrics.export_csv(os.path.join(art, "scalars.csv"))
-        self.metrics.plot(os.path.join(art, "training_curves.png"))
+        if self.mesh.is_main:
+            self.metrics.export_json(os.path.join(art, "history.json"))
+            self.metrics.export_csv(os.path.join(art, "scalars.csv"))
+            self.metrics.plot(os.path.join(art, "training_curves.png"))
         report = training_report(self.metrics.history,
-                                 path=os.path.join(art, "training_report.json"))
+                                 path=(os.path.join(art, "training_report.json")
+                                       if self.mesh.is_main else None))
         report["best_val_accuracy"] = best_acc
         return report
 
@@ -504,11 +552,13 @@ class ResNetTrainer:
 
         names = list(DEFECT_CLASSES)[:c["num_classes"]]
         plot_dir = plot_dir or c["checkpoint_dir"]
-        try:
-            aucs = plot_roc_curves(labels, probs, names, os.path.join(plot_dir, "roc_curves.png"))
-            plot_confusion_matrix(cm, names, os.path.join(plot_dir, "confusion_matrix.png"))
-        except Exception:  # plotting never fails the evaluation
-            aucs = multiclass_roc_auc(labels, probs)
+        aucs = multiclass_roc_auc(labels, probs)
+        if self.mesh.is_main:  # rank 0 draws the plots
+            try:
+                plot_roc_curves(labels, probs, names, os.path.join(plot_dir, "roc_curves.png"))
+                plot_confusion_matrix(cm, names, os.path.join(plot_dir, "confusion_matrix.png"))
+            except Exception:  # plotting never fails the evaluation
+                pass
         result["roc_auc"] = {names[k]: v for k, v in aucs.items() if k < len(names)}
         return result
 
@@ -522,15 +572,21 @@ class ResNetTrainer:
 
     def save(self, path: str, epoch: int = 0) -> None:
         """Weights-only Flax msgpack checkpoint (``ResNetClassifier(model_path
-        =...)`` of either package loads it), the epoch and config beside it."""
-        save_variables(path, self.variables(), {"epoch": epoch, "config": self.config})
+        =...)`` of either package loads it), the epoch and config beside it;
+        on a mesh rank 0 writes and every rank waits for it."""
+        if self.mesh.is_main:
+            save_variables(path, self.variables(), {"epoch": epoch, "config": self.config})
+        self.mesh.barrier()
 
     def save_full(self, path: str, epoch: int = 0) -> None:
         """The full train state (step, weights, statistics, optimizer state)
-        in the JAX package's layout."""
+        in the JAX package's layout (rank 0 writes)."""
         from iqc_tpu_torch.train.checkpoint import save_train_state
 
-        save_train_state(path, self.module, self.state, {"epoch": epoch, "config": self.config})
+        if self.mesh.is_main:
+            save_train_state(path, self.module, self.state,
+                             {"epoch": epoch, "config": self.config})
+        self.mesh.barrier()
 
     def resume(self, path: str) -> None:
         """Restore a full train-state checkpoint, or, where the file holds
@@ -579,7 +635,9 @@ def main(argv=None) -> None:
     config = config_from_profile(read_config_file(args.config)) if args.config else {}
     if args.epochs:
         config["epochs"] = args.epochs
-    trainer = ResNetTrainer.from_image_folders(args.data_dir, config, device=args.device)
+    # under a launcher: this rank's device and the job's process group
+    trainer = ResNetTrainer.from_image_folders(args.data_dir, config,
+                                               device=distributed_init(args.device))
     trainer.build(steps_per_epoch=max(len(trainer.train_loader), 1))
     if args.resume:
         trainer.resume(args.resume)
@@ -591,7 +649,10 @@ def main(argv=None) -> None:
     # the kernels this run launched (the classifier's path has none)
     out["kernel_launches"] = {**nms_kernel.LAUNCHES, **morph_kernel.LAUNCHES}
     trainer.save(os.path.join(trainer.config["checkpoint_dir"], "final_model.msgpack"))
-    print(json.dumps(out))
+    if trainer.mesh.is_main:
+        print(json.dumps(out))
+    if trainer.mesh.distributed:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

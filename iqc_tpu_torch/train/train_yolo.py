@@ -1,4 +1,4 @@
-"""YOLOv8 detection trainer on one device.
+"""YOLOv8 detection trainer, on one device or data-parallel over a mesh.
 
 The JAX package's ``train/train_yolo.py`` on PyTorch: YOLOv8 in training
 mode, the task-aligned loss (``train/yolo_loss.py``), SGD with Nesterov
@@ -16,13 +16,24 @@ or streaming (a batch uploaded per step). Random choices are drawn on the
 CPU from generators seeded by (seed, step), so a run on the card and one
 on the CPU train on the same batches, and a resumed run draws the same.
 
-The trainer runs on one device: ``device="cuda"`` unless the caller passes
-``device="cpu"``; there is no fallback from one to the other. A mesh of
-more than one device raises.
+The trainer runs on ``device="cuda"`` unless the caller passes
+``device="cpu"``; there is no fallback from one to the other. Under a
+launcher (``python -m torch.distributed.run --nproc-per-node N``) it trains
+data-parallel over the mesh of ``mesh_config`` (None: every rank of the
+job; ``parallel/mesh.py``), one rank per device, as the JAX package does
+on a mesh: every rank reads the same global batches and draws, keeps its
+rows, and runs the step on them with the BatchNorm statistics and the
+loss's normaliser taken over the global batch and the gradients summed
+over the ranks; the parameters, statistics and EMA stay equal on every
+rank. On a mesh of more than one rank device mosaic is off (host mosaic
+and mixup run in the loader), batches stream (no corpus or staged tier),
+validation shards each batch and gathers the detections, and rank 0 writes
+the checkpoints.
 
 Run: ``python -m iqc_tpu_torch.train.train_yolo --synthetic --epochs 1``
 (``--config`` a JSON file of the training profile, or YAML where PyYAML is
-installed).
+installed); on N cards ``python -m torch.distributed.run --nproc-per-node N
+-m iqc_tpu_torch.train.train_yolo ...``.
 """
 
 from __future__ import annotations
@@ -37,11 +48,13 @@ import numpy as np
 import torch
 
 from iqc_tpu_torch.data.yolo_dataset import DetectionLoader
-from iqc_tpu_torch.models.layers import exact_float32
+from iqc_tpu_torch.models.layers import exact_float32, set_mesh
 from iqc_tpu_torch.models.yolo import (BACKBONE_KEYS, MODULE_ORDER, STRIDES, YOLOv8,
                                        feature_shapes, init_weights)
 from iqc_tpu_torch.ops.jit_utils import hoisted_jit
 from iqc_tpu_torch.ops.nms import make_anchors
+from iqc_tpu_torch.parallel.mesh import (all_gather_rows, all_reduce_sum, create_mesh,
+                                         distributed_init, padded_rows, replicate, shard_batch)
 from iqc_tpu_torch.train import steps
 from iqc_tpu_torch.train.detection_metrics import evaluate_detections
 from iqc_tpu_torch.train.utils import EarlyStopping, MetricsTracker, set_global_seed
@@ -126,17 +139,6 @@ def config_from_profile(raw: Dict[str, Any]) -> Dict[str, Any]:
     return config
 
 
-def _mesh_size(mesh_config, device: torch.device) -> int:
-    if mesh_config is None:
-        return 1
-    get = (mesh_config.get if isinstance(mesh_config, dict)
-           else lambda k, d=None: getattr(mesh_config, k, d))
-    dp, mp = int(get("data_parallel", 1)), int(get("model_parallel", 1))
-    if dp <= 0:  # -1: every device
-        dp = torch.cuda.device_count() if device.type == "cuda" else 1
-    return dp * mp
-
-
 def _generator(seed: int, step: int) -> torch.Generator:
     """A CPU generator for one step's draws, seeded from (seed, step)."""
     state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
@@ -153,22 +155,22 @@ def _as_float(images: torch.Tensor) -> torch.Tensor:
 
 class YOLOTrainer:
     """``train``, ``validate`` and ``save`` of a YOLOv8 detector on one
-    device. ``step_parts`` holds the loss parts of each step of the last
-    epoch (host floats)."""
+    device or on this rank's device of a data-parallel mesh. ``step_parts``
+    holds the loss parts of each step of the last epoch (host floats)."""
 
     def __init__(self, config: Optional[Dict] = None, mesh_config=None, device="cuda"):
         self.config = {**DEFAULT_CONFIG, **(config or {})}
         c = self.config
         self.device = torch.device(device)
-        if _mesh_size(mesh_config, self.device) > 1:
-            raise ValueError("the port trains on one device; a mesh of more than one device "
-                             "(multi-GPU training) is not ported")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass device='cpu' to train on "
                                "the CPU")
+        # None: every rank of the launched job (one process: a mesh of 1)
+        self.mesh = create_mesh(mesh_config, device=self.device)
         exact_float32(self.device)
         set_global_seed(c["seed"])  # python's and numpy's global generators
-        self.uses_device_mosaic = bool(c.get("device_mosaic", True))
+        # device mosaic picks sources across the whole batch: one device only
+        self.uses_device_mosaic = bool(c.get("device_mosaic", True)) and self.mesh.size == 1
         dtype = torch.bfloat16 if c["compute_dtype"] == "bfloat16" else torch.float32
         kw = dict(num_classes=c["num_classes"], width_mult=c["width_mult"],
                   depth_mult=c["depth_mult"], reg_max=c["reg_max"], dtype=dtype,
@@ -198,6 +200,8 @@ class YOLOTrainer:
         init_weights(self.module, c["seed"])
         self.module.to(self.device).train()
         self.eval_module.to(self.device).eval()
+        set_mesh(self.module, self.mesh)
+        replicate(self.mesh, list(self.module.state_dict().values()))
         freeze_n = int(c.get("freeze_layers", 0) or 0)
         params = dict(self.module.named_parameters())
         opt = steps.sgd_init(params, masked=bool(freeze_n))
@@ -255,7 +259,11 @@ class YOLOTrainer:
         ``build`` has set up for the same model and optimizer."""
         from iqc_tpu_torch import weights
 
-        s = weights.train_state_from_flax(state, ema_params)
+        self.load_state(weights.train_state_from_flax(state, ema_params))
+
+    def load_state(self, s: Dict[str, Any]) -> None:
+        """Take a state in the form ``weights.train_state_from_flax``
+        returns into this trainer."""
         with torch.no_grad():
             for name, t in self.state.params.items():
                 t.copy_(s["params"][name])
@@ -292,12 +300,14 @@ class YOLOTrainer:
         return draw_yolo_augment(_generator(self.config["seed"] + AUG_SEED_OFFSET, step),
                                  batch, height, width, self.aug_hyp)
 
-    def _augment(self, images, boxes, classes, valid, step: int):
+    def _augment(self, images, boxes, classes, valid, step: int, global_b: int):
+        """The augmentation of this rank's rows: the global batch's draws,
+        cut to the rows."""
         from iqc_tpu_torch.data.augmentation import yolo_train_augment_batch
 
-        b, h, w = images.shape[:3]
-        return yolo_train_augment_batch(images, boxes, classes, valid,
-                                        self._draw_augment(step, b, h, w), self.aug_hyp)
+        h, w = images.shape[1:3]
+        draws = shard_batch(self.mesh, self._draw_augment(step, global_b, h, w), upload=False)
+        return yolo_train_augment_batch(images, boxes, classes, valid, draws, self.aug_hyp)
 
     def _inbatch_mosaic(self, images, boxes, classes, valid, step: int):
         from iqc_tpu_torch.ops.mosaic import mixup_batch, mosaic_batch
@@ -308,37 +318,50 @@ class YOLOTrainer:
                              bool(self.config.get("mosaic_antialias", False)))
         return mixup_batch(*batch, x_draws)
 
-    def _step(self, images, boxes, classes, valid, inbatch_mosaic: bool) -> Dict[str, torch.Tensor]:
-        """One update of ``self.state`` and the EMA from a batch on the device."""
+    def _step(self, images, boxes, classes, valid, inbatch_mosaic: bool,
+              global_b: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """One update of ``self.state`` and the EMA from a batch on the
+        device: on a mesh, this rank's rows of a global batch of
+        ``global_b`` rows (padded; the batch itself by default). Returns the
+        global batch's loss parts."""
         st = self.state
+        global_b = global_b or images.shape[0]
         images = _as_float(images)
         if inbatch_mosaic and self.use_dev_mosaic:
             images, boxes, classes, valid = self._inbatch_mosaic(images, boxes, classes, valid,
                                                                  st.step)
         if self.aug_hyp is not None:
-            images, boxes, classes, valid = self._augment(images, boxes, classes, valid, st.step)
+            images, boxes, classes, valid = self._augment(images, boxes, classes, valid, st.step,
+                                                          global_b)
         c = self.config
         names = list(st.params)
         dist, cls = self.module(images)
         total, parts = yolo_loss(dist, cls, self.anchors, self.strides, boxes.to(torch.float32),
                                  classes, valid, c["reg_max"], self.loss_cfg,
-                                 class_weights=self._class_weights)
-        grads = torch.autograd.grad(total, [st.params[k] for k in names])
+                                 class_weights=self._class_weights, mesh=self.mesh)
+        grads = steps.all_reduce_grads(self.mesh, torch.autograd.grad(
+            total, [st.params[k] for k in names]))
         st.opt_state = steps.sgd_update(st.params, dict(zip(names, grads)), st.opt_state,
                                         self.schedule, c["momentum"], c["weight_decay"])
         steps.ema_update(self.ema_params, st.params, steps.ema_decay_at(st.step, c["ema_decay"]))
         st.step += 1
         out = {k: v.detach() for k, v in parts.items()}
         out["loss"] = total.detach()
+        if self.mesh.distributed:  # this rank's shares -> the global batch's
+            keys = list(out)
+            totals = all_reduce_sum(self.mesh, torch.stack([out[k] for k in keys]))
+            out = dict(zip(keys, totals))
         return out
 
     def train_step(self, images, boxes, classes, valid) -> Dict[str, torch.Tensor]:
         """One streaming step (in-batch device mosaic where active) from a
-        host or device batch; returns its loss parts as 0-d tensors."""
-        up = lambda x: torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x
-                                       ).to(self.device)
+        host or device batch (on a mesh the global batch, of which this rank
+        takes its rows); returns the global batch's loss parts as 0-d
+        tensors."""
         self.module.train()
-        return self._step(up(images), up(boxes), up(classes), up(valid), inbatch_mosaic=True)
+        n = len(images)
+        rows = shard_batch(self.mesh, (images, boxes, classes, valid))
+        return self._step(*rows, inbatch_mosaic=True, global_b=padded_rows(self.mesh, n))
 
     def _finish_epoch(self, parts: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
         if not parts:
@@ -406,7 +429,7 @@ class YOLOTrainer:
         (``staged_host_epochs`` on, uniform batch shapes, the epoch under
         IQC_STAGED_EPOCH_MB, default 1024), else None; batches built but
         ineligible are parked in ``_pending_batches`` for streaming."""
-        if not self.config.get("staged_host_epochs", True):
+        if self.mesh.size > 1 or not self.config.get("staged_host_epochs", True):
             return None
         cap_mb = float(os.environ.get("IQC_STAGED_EPOCH_MB", "1024"))
         it = iter(loader)
@@ -512,8 +535,8 @@ class YOLOTrainer:
         """A deterministic val set on the device, uploaded once: (images
         [E,B,H,W,3], host ground truths), or None to stream (augmented,
         shuffled, ragged or over IQC_DEVICE_VAL_MB, default 512)."""
-        if (getattr(loader, "mosaic_prob", 0) or getattr(loader, "mixup_prob", 0)
-                or getattr(loader, "shuffle", True)):
+        if (self.mesh.size > 1 or getattr(loader, "mosaic_prob", 0)
+                or getattr(loader, "mixup_prob", 0) or getattr(loader, "shuffle", True)):
             return None
         cached = self._val_cache.get(id(loader))
         if cached is not None and cached[0] is loader:
@@ -538,15 +561,17 @@ class YOLOTrainer:
 
     def predict_batches(self, batches) -> List[Dict[str, np.ndarray]]:
         """Detections of the EMA model on each [B,H,W,3] batch (device
-        tensors or host arrays), one host transfer at the end."""
+        tensors or host arrays), one host transfer at the end. Each rank
+        predicts its rows of the batch and the detections of every rank are
+        gathered: every rank returns the whole batch's."""
         c = self.config
         self._sync_eval_module()
         outs = []
         with torch.no_grad():
             for images in batches:
-                x = torch.as_tensor(np.asarray(images) if not isinstance(images, torch.Tensor)
-                                    else images).to(self.device)
-                outs.append(self._predict(x, float(c["val_conf"]), float(c["val_iou"])))
+                det = self._predict(shard_batch(self.mesh, images), float(c["val_conf"]),
+                                    float(c["val_iou"]))
+                outs.append(tuple(all_gather_rows(self.mesh, t)[:len(images)] for t in det))
         host = [tuple(t.cpu().numpy() for t in o) for o in outs]
         preds = []
         for boxes, scores, classes, valid in host:
@@ -584,10 +609,13 @@ class YOLOTrainer:
     def save(self, path: str) -> None:
         """The EMA weights and current statistics as a Flax msgpack
         checkpoint (``YOLODetector(model_path=...)`` of either package
-        loads it), the config beside it."""
+        loads it), the config beside it; on a mesh rank 0 writes and every
+        rank waits for it."""
         from iqc_tpu_torch.train.checkpoint import save_variables
 
-        save_variables(path, self.variables(), {"config": self.config})
+        if self.mesh.is_main:
+            save_variables(path, self.variables(), {"config": self.config})
+        self.mesh.barrier()
 
 
 def main(argv=None) -> None:
@@ -633,7 +661,8 @@ def main(argv=None) -> None:
                                           for k in result["history"][0]["genes"]}}, indent=2))
         return
 
-    trainer = YOLOTrainer(config, device=args.device)
+    # under a launcher: this rank's device and the job's process group
+    trainer = YOLOTrainer(config, device=distributed_init(args.device))
     c = trainer.config
     if args.synthetic or not args.data_dir:
         from iqc_tpu_torch.data.yolo_dataset import SyntheticDefectDataset
@@ -660,8 +689,11 @@ def main(argv=None) -> None:
 
     # the kernels this run launched (validation's suppression)
     report["kernel_launches"] = {**nms_kernel.LAUNCHES, **morph_kernel.LAUNCHES}
-    print(json.dumps(report, indent=2))
+    if trainer.mesh.is_main:
+        print(json.dumps(report, indent=2))
     trainer.save(os.path.join(c["checkpoint_dir"], "yolov8_qc.msgpack"))
+    if trainer.mesh.distributed:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

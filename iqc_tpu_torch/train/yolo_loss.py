@@ -17,6 +17,12 @@ Each one-hot masked sum of the JAX package selects exactly one element, so a
 gather here gives the same value. The two powers of the alignment are taken
 in float64 and rounded to float32, which matches XLA's float32 ``pow``
 more closely than PyTorch's float32 one.
+
+On a data-parallel mesh each rank holds some images of the global batch.
+The normaliser (the sum of the target scores, at least 1) is global, as it
+is in the JAX package under GSPMD: each rank all-reduces its sum before the
+clamp, and its loss is then its share of the global loss (the shares sum to
+it). The assignment is per image and stays on the rank.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch.nn.functional as F
 
 from iqc_tpu_torch.ops.boxes import ciou
 from iqc_tpu_torch.ops.nms import decode_boxes
+from iqc_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 class YoloLossConfig(NamedTuple):
@@ -146,17 +153,21 @@ def yolo_loss(
     reg_max: int,
     cfg: YoloLossConfig = YoloLossConfig(),
     class_weights: Optional[torch.Tensor] = None,  # [C]
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total loss (0-d) and its parts. ``class_weights`` scales each class
     column of the classification BCE (positive and negative terms); box and
-    DFL terms are unweighted. None is unweighted."""
+    DFL terms are unweighted. None is unweighted. With a ``mesh``
+    (``parallel.mesh.MeshSpec``) the batch is this rank's rows of the
+    global batch: the normaliser is the global one, and the loss and its
+    parts are this rank's shares (``num_fg`` its own count)."""
     pred_boxes = decode_boxes(dist_logits, anchors, strides, reg_max)  # [B,A,4]
     pred_scores = torch.sigmoid(cls_logits.to(torch.float32))
     assign = assign_targets(pred_boxes.detach(), pred_scores.detach(), anchors,
                             gt_boxes, gt_classes, gt_valid, cfg)
     fg = assign["fg"]
     tgt_score = assign["target_score"]
-    n_fg = torch.clamp(torch.sum(tgt_score), min=1.0)
+    n_fg = torch.clamp(all_reduce_sum(mesh, torch.sum(tgt_score)), min=1.0)
 
     c = cls_logits.shape[-1]
     classes = torch.arange(c, device=cls_logits.device)

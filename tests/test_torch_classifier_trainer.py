@@ -499,14 +499,16 @@ def test_checkpoints_both_ways(data, jax_run, jax_corpus_steps, tmp_path):
 
 def test_architectures_and_refusals(tmp_path):
     """resnet101's stages as the JAX trainer's; another architecture, a mesh
-    of more than one device, and a card where there is none are refused."""
+    of more than one device in a process that no launcher started (more
+    ranks than the group has), and a card where there is none are
+    refused."""
     for arch in ("resnet50", "resnet101"):
         pt = ResNetTrainer({"architecture": arch, "checkpoint_dir": str(tmp_path)}, device="cpu")
         assert pt.config["stage_sizes"] == list(JaxTrainer.ARCHITECTURES[arch])
         assert len(pt.module.blocks) == sum(JaxTrainer.ARCHITECTURES[arch])
     with pytest.raises(ValueError, match="Unsupported architecture: vgg16"):
         ResNetTrainer({"architecture": "vgg16"}, device="cpu")
-    with pytest.raises(ValueError, match="one device"):
+    with pytest.raises(ValueError, match="more ranks than the group has"):
         ResNetTrainer({"checkpoint_dir": str(tmp_path)}, device="cpu",
                       mesh_config=MeshConfig(data_parallel=2, model_parallel=1))
     if not torch.cuda.is_available():

@@ -8,6 +8,9 @@ Tolerance: keep masks and morphology masks are booleans and must be EQUAL;
 the int8 convolution's int32 accumulators on the card EQUAL the CPU's.
 """
 
+import contextlib
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -580,8 +583,8 @@ TRAIN_CFG = {"image_size": 64, "batch_size": 4, "max_boxes": 8, "epochs": 1,
                               "scale": 0.5, "fliplr": 0.5}}
 
 
-def _torch_order_mean(x):
-    return x.mean([d for d in range(x.dim()) if d != 1])
+def _torch_order_sum(x):
+    return x.sum([d for d in range(x.dim()) if d != 1])
 
 
 def _trained_pair(cuda, steps):
@@ -629,7 +632,7 @@ def test_train_steps_on_the_card_equal_the_cpu(cuda, cpu_stats, monkeypatch):
     from iqc_tpu_torch.models import layers
 
     if cpu_stats == "torch_order":
-        monkeypatch.setattr(layers, "channel_mean", _torch_order_mean)
+        monkeypatch.setattr(layers, "channel_sum", _torch_order_sum)
     gpu, cpu, pg, pc = _trained_pair(cuda, 2)
     tol = 1e-4 if cpu_stats == "torch_order" else 1e-3
     for g, c in zip(pg, pc):
@@ -720,7 +723,7 @@ def test_classifier_steps_on_the_card_equal_the_cpu(cuda, cpu_stats, monkeypatch
     from iqc_tpu_torch.models import layers
 
     if cpu_stats == "torch_order":
-        monkeypatch.setattr(layers, "channel_mean", _torch_order_mean)
+        monkeypatch.setattr(layers, "channel_sum", _torch_order_sum)
     (gpu, pg), (cpu, pc) = _classifier_pair(cuda, 2, tmp_path)
     tols = (1e-4 if cpu_stats == "torch_order" else 1e-3, 2e-3)
     for g, c, tol in zip(pg, pc, tols):
@@ -764,3 +767,132 @@ def test_clean_and_grow_clean_batch_on_the_card(cuda, n, r):
     assert morph_kernel.LAUNCHES["grow_clean"] == before["grow_clean"] + 1
     assert torch.equal(got_c, morph_kernel.clean_plain(masks, 16))
     assert torch.equal(got_g, morph_kernel.grow_clean_plain(seeds, allow, 24, 16))
+
+
+# -- the mesh over NCCL at world size 1 ------------------------------------------------
+
+
+@contextlib.contextmanager
+def _nccl_rank(tmp_path):
+    """This process as the one rank of an NCCL group (a file store in
+    ``tmp_path``), its mesh yielded; the group ends and the launcher's
+    variables are restored after."""
+    import torch.distributed as dist
+
+    from iqc_tpu_torch.parallel.mesh import create_mesh, distributed_init
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        device = distributed_init("cuda", timeout_s=120,
+                                  init_method=f"file://{tmp_path}/nccl_store")
+        assert dist.get_backend() == "nccl"
+        yield create_mesh(device=device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@pytest.mark.cuda
+def test_batchnorm_statistics_all_reduce_over_nccl(cuda, tmp_path):
+    """A train-mode BatchNorm on a mesh of one NCCL rank (its channel sums
+    all-reduced, its backward's too) equals the plain one on the card:
+    outputs, running statistics and gradients within 1e-6."""
+    from iqc_tpu_torch.models.layers import BatchNorm, set_mesh
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((8, 6, 9, 9), generator=gen) * 1.5 + 0.3
+    x[:4] = 0.7  # flat images
+    w = torch.randn((6, 9, 9), generator=gen)
+
+    def run(mesh):
+        bn = BatchNorm(6, eps=1e-3).to(cuda).train()
+        set_mesh(bn, mesh)
+        xx = x.to(cuda).requires_grad_(True)
+        y = bn(xx)
+        (y * w.to(cuda)).sum().backward()
+        return [t.detach().cpu() for t in (y, xx.grad, bn.weight.grad, bn.bias.grad,
+                                           bn.running_mean, bn.running_var)]
+
+    want = run(None)
+    with _nccl_rank(tmp_path) as spec:
+        assert spec.distributed and spec.data_size == 1
+        got = run(spec)
+    for g, c in zip(got, want):
+        torch.testing.assert_close(g, c, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_run_sharded_equals_run_on_the_card(cuda, tmp_path):
+    """``run_sharded`` and ``run_full_sharded`` on a mesh of one NCCL rank
+    (captured stages, the pools' keys and the outputs gathered between
+    them) against ``run`` and ``run_full_host`` on the card: decisions and
+    masks equal, boxes within 1e-2 px, scores within 1e-5."""
+    from iqc_tpu_torch.config import SystemConfig, resolve_path
+    from iqc_tpu_torch.models.ensemble import EnsemblePredictor
+
+    cfg = {"model": {"yolo_weights": resolve_path("models/yolov8n_qc_synthetic.msgpack"),
+                     "resnet_weights": "", "width_mult": 0.25, "max_detections": 16,
+                     "max_classified": 4, "max_classified_pool": 6, "max_segmented": 2,
+                     "max_segmented_pool": 6, "seg_roi_size": 32,
+                     "confidence_threshold": 0.05, "compute_dtype": "float32",
+                     "classifier_input": 32, "resnet_stages": [1, 1, 1, 1]},
+           "processing": {"input_size": [128, 128], "preprocessing": {"resize": [128, 128]}},
+           "edge": {"precision": "fp32"}}
+    pred = EnsemblePredictor(config=SystemConfig.from_dict(cfg), device=cuda)
+    frames = _frames(8)
+    want = pred.run(frames)
+    want_full = pred.run_full_host(frames)
+    with _nccl_rank(tmp_path) as spec:
+        got = pred.run_sharded(frames, spec)
+        got_full = pred.run_full_sharded(frames, spec)
+    g, w = ({k: v.cpu().numpy() for k, v in o._asdict().items()} for o in (got, want))
+    for f in ("valid", "classes", "crop_classified", "final_severity", "severity_counts"):
+        np.testing.assert_array_equal(g[f], w[f], err_msg=f)
+    v = w["valid"]
+    np.testing.assert_allclose(g["boxes"][v], w["boxes"][v], atol=1e-2)
+    np.testing.assert_allclose(g["ensemble_conf"][v], w["ensemble_conf"][v], rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_array_equal(got_full[1], want_full[1])
+    np.testing.assert_array_equal(got_full[0].valid, want_full[0].valid)
+
+
+@pytest.mark.cuda
+def test_sharded_yolo_step_equals_the_plain_step_on_the_card(cuda, tmp_path):
+    """One float32 YOLO step on a mesh of one NCCL rank (global batch
+    statistics, the loss's normaliser and the gradients all-reduced)
+    against the plain step on the card, from the same state and batch: the
+    loss within 1e-4 relative, parameters, EMA and statistics within
+    rtol 2e-4 / atol 2e-5 (the JAX package's sharded-vs-single bounds)."""
+    from iqc_tpu_torch.data.yolo_dataset import DetectionLoader, SyntheticDefectDataset
+    from iqc_tpu_torch.train.train_yolo import YOLOTrainer
+
+    cfg = {"image_size": 64, "batch_size": 8, "max_boxes": 8, "width_mult": 0.125,
+           "reg_max": 8, "compute_dtype": "float32", "warmup_epochs": 0, "mosaic": 0.0,
+           "device_mosaic": False, "ema_decay": 0.9, "checkpoint_dir": str(tmp_path)}
+    batch = next(iter(DetectionLoader(SyntheticDefectDataset(8, 64, 8, seed=3), 8,
+                                      mosaic_prob=0.0, mixup_prob=0.0, shuffle=False)))
+    args = (batch["images"], batch["boxes"], batch["classes"], batch["valid"])
+
+    def step():
+        tr = YOLOTrainer(cfg, device=cuda)
+        tr.build(steps_per_epoch=2)
+        parts = tr.train_step(*args)
+        return tr, {k: float(v) for k, v in parts.items()}
+
+    plain, want = step()
+    with _nccl_rank(tmp_path) as spec:
+        sharded, got = step()
+        assert sharded.mesh.distributed and spec.data_size == 1
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
+    for name in ("params", "batch_stats"):
+        for k, v in getattr(plain.state, name).items():
+            torch.testing.assert_close(getattr(sharded.state, name)[k], v, rtol=2e-4, atol=2e-5)
+    for k, v in plain.ema_params.items():
+        torch.testing.assert_close(sharded.ema_params[k], v, rtol=2e-4, atol=2e-5)

@@ -254,8 +254,10 @@ def test_evolve_same_history():
 
 
 def test_multi_device_mesh_refused():
-    """A mesh of more than one device raises; one device is accepted."""
-    with pytest.raises(ValueError, match="one device"):
+    """A mesh of two devices in a process that no launcher started raises
+    (the mesh asks for more ranks than the group has); one device is
+    accepted."""
+    with pytest.raises(ValueError, match="more ranks than the group has"):
         YOLOTrainer(CFG, mesh_config=MeshConfig(data_parallel=2, model_parallel=1), device="cpu")
     YOLOTrainer(CFG, mesh_config=MeshConfig(data_parallel=1, model_parallel=1), device="cpu")
 
